@@ -1,0 +1,70 @@
+"""Carry problems and queue state across from numpy.
+
+The port has no weights: what has to match the reference are the problem
+constants and the queue state.  A caller (the parity tests) turns the
+reference's objects into dicts of numpy arrays with `np.asarray`, and these
+functions build the port's tensors from them — the port itself never sees
+a jax object.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.queues import NetState
+from repro_torch.fleet.batching import LEAVES, PaddedProblem
+
+#: NetState fields, in order.
+STATE_FIELDS = ("Q", "Ddum", "X", "Y", "H", "cum_arr", "cum_comb",
+                "delivered", "delivered_useful", "delivered_c",
+                "delivered_useful_c")
+
+#: Leaf -> rank of one unbatched problem's leaf.
+_PROBLEM_RANK = {"edges": 2, "edge_cap": 1, "s1": 0, "s2": 0, "dest": 0,
+                 "comp_nodes": 1, "comp_caps": 1, "sink": 3, "edge_mask": 1,
+                 "comp_mask": 1}
+_STATE_RANK = {"Q": 3, "Ddum": 2, "X": 2, "Y": 1, "H": 1, "cum_arr": 2,
+               "cum_comb": 1, "delivered": 0, "delivered_useful": 0,
+               "delivered_c": 0, "delivered_useful_c": 0}
+
+
+def _batched(name: str, a: np.ndarray, rank: int) -> np.ndarray:
+    a = np.asarray(a)
+    if a.ndim == rank:
+        return a[None]
+    if a.ndim != rank + 1:
+        raise ValueError(f"{name}: expected rank {rank} or {rank + 1} "
+                         f"(batched), got shape {a.shape}")
+    return a
+
+
+def padded_problem_from_numpy(leaves: Dict[str, np.ndarray], n_nodes: int,
+                              n_comp: int, device=None) -> PaddedProblem:
+    """A PaddedProblem from numpy leaves named as its fields; unbatched
+    leaves (one problem) become a batch of one."""
+    missing = set(LEAVES) - set(leaves)
+    if missing:
+        raise KeyError(f"missing problem leaves: {sorted(missing)}")
+    return PaddedProblem(n_nodes=int(n_nodes), n_comp=int(n_comp), **{
+        k: torch.as_tensor(np.array(_batched(k, leaves[k], _PROBLEM_RANK[k])),
+                           device=device)
+        for k in LEAVES})
+
+
+def net_state_from_numpy(d: Dict[str, np.ndarray], device=None) -> NetState:
+    """A NetState from numpy arrays named as its fields; unbatched arrays
+    (one sim) become a batch of one."""
+    missing = set(STATE_FIELDS) - set(d)
+    if missing:
+        raise KeyError(f"missing state fields: {sorted(missing)}")
+    return NetState(**{
+        k: torch.as_tensor(_batched(k, d[k], _STATE_RANK[k]).astype(
+            np.float32), device=device)
+        for k in STATE_FIELDS})
+
+
+def net_state_to_numpy(state: NetState) -> Dict[str, np.ndarray]:
+    """The state's fields as batched numpy arrays."""
+    return {k: getattr(state, k).detach().cpu().numpy() for k in STATE_FIELDS}

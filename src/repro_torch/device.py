@@ -1,0 +1,40 @@
+"""Device selection and the pytree helpers the batched state needs.
+
+Every entry point (`run_fleet`, `stream_simulate`, `simulate`,
+`sweep_rates`, `capacity_report`) runs on CUDA unless its caller passes
+``device="cpu"``.  Without a card and without an explicit device they
+raise: a run never carries on on the CPU by accident.
+
+The state containers are frozen dataclasses whose fields are tensors or
+other such dataclasses; `tree_leaves` walks them the way `jax.tree_util`
+walks the JAX package's NamedTuples.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else CUDA.
+
+    Raises RuntimeError when no device was asked for and CUDA is absent."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain PyTorch path "
+            "on the CPU")
+    return torch.device("cuda")
+
+
+def tree_leaves(x) -> list:
+    """The tensors of a tree of dataclasses, in field order."""
+    if not dataclasses.is_dataclass(x):
+        return [x]
+    out = []
+    for f in dataclasses.fields(x):
+        out.extend(tree_leaves(getattr(x, f.name)))
+    return out

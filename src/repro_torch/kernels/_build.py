@@ -1,0 +1,100 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/*.cu` file becomes one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), compiled for Hopper:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <src>
+
+Libraries go to ``build/repro_torch/`` at the checkout's root (listed in
+.gitignore), named by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  Nothing is built when a
+module is imported: `load` builds at a kernel's first CUDA call, and
+`build_all` builds every source up front.  ``-fmad=false`` and the absence
+of ``--use_fast_math`` are part of the kernels' bit-exactness contract (see
+the sources).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Dict, List
+
+PKG_ROOT = pathlib.Path(__file__).resolve().parents[1]      # src/repro_torch
+BUILD_DIR = PKG_ROOT.parents[1] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+_LOADED: Dict[pathlib.Path, ctypes.CDLL] = {}
+
+
+def sources() -> List[pathlib.Path]:
+    """Every CUDA source of the port, in a stable order."""
+    return sorted(PKG_ROOT.glob("kernels/**/csrc/*.cu"))
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, or PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (pathlib.Path(root) / "bin" / "nvcc").is_file():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                           "are built at first use on a CUDA machine")
+    return found
+
+
+def library_path(src: pathlib.Path) -> pathlib.Path:
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(src: pathlib.Path) -> pathlib.Path:
+    """The library of one source, compiled first if it is not there."""
+    out = library_path(src)
+    with _LOCK:
+        if out.is_file():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}")
+        os.replace(tmp, out)      # atomic: a reader never sees half a file
+    return out
+
+
+def build_all() -> float:
+    """Build every source; returns the wall seconds spent."""
+    t0 = time.perf_counter()
+    for src in sources():
+        build(src)
+    return time.perf_counter() - t0
+
+
+def load(src: pathlib.Path) -> ctypes.CDLL:
+    """The loaded library of one source, building it first if needed."""
+    src = pathlib.Path(src)
+    lib = _LOADED.get(src)
+    if lib is None:
+        path = build(src)
+        with _LOCK:
+            lib = _LOADED.get(src)
+            if lib is None:
+                lib = _LOADED[src] = ctypes.CDLL(str(path))
+    return lib

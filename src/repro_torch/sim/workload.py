@@ -1,0 +1,116 @@
+"""Query-arrival processes and the port's counter-based random numbers.
+
+Port of `repro.sim.workload`.  `torch.Generator` cannot reproduce JAX's
+threefry streams, and a stateful generator would make a sim's noise depend
+on the batch it runs in.  So every random draw of the port is a pure
+integer hash (SplitMix64 on int64 tensors) of
+
+    (the sim's seed, the sim's own slot t, the draw site, the element index)
+
+which gives three properties the fleet engine relies on: a sim's noise
+depends only on its own seed and slot, never on its lane or its batch; a
+frozen sim (whose slot counter stops) keeps its stream pinned; and the CPU
+and the GPU give the same draws bit for bit.
+
+Poisson counts come from a per-sim inverse-CDF table built once per run
+(each sim's rate is fixed for a run), so a slot's draw is one comparison
+against the table instead of a sampling loop.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from scipy import stats
+
+# Draw sites: one independent stream each.
+SITE_ARRIVAL = 1          # Poisson / Bernoulli-batch arrival uniforms
+SITE_ARRIVAL_PHASE = 2    # Markov ON-OFF phase flip
+SITE_REGULATOR = 3        # regulator B(t), one per comp node
+SITE_EVENT_LINK = 4       # link_flaps and Gilbert-Elliott link chains
+SITE_EVENT_COMP = 5       # comp_failures and Gilbert-Elliott comp chains
+
+
+def _signed(x: int) -> int:
+    """A 64-bit constant as the int64 value with the same bits."""
+    return x - (1 << 64) if x >= (1 << 63) else x
+
+
+_GAMMA = _signed(0x9E3779B97F4A7C15)
+_M1 = _signed(0xBF58476D1CE4E5B9)
+_M2 = _signed(0x94D049BB133111EB)
+
+
+def _srl(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's >> is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def mix64(z: torch.Tensor) -> torch.Tensor:
+    """SplitMix64's finalizer on int64 tensors (wrapping arithmetic)."""
+    z = (z ^ _srl(z, 30)) * _M1
+    z = (z ^ _srl(z, 27)) * _M2
+    return z ^ _srl(z, 31)
+
+
+def random_bits(seed: torch.Tensor, t: torch.Tensor, site: int,
+                n: int) -> torch.Tensor:
+    """[B, n] int64 hash of (seed[b], t[b], site, element index)."""
+    base = mix64(seed.long() * _GAMMA + site)
+    base = mix64(base + (t.long() + 1) * _GAMMA)
+    idx = torch.arange(1, n + 1, dtype=torch.long, device=base.device)
+    return mix64(base[:, None] + idx[None, :] * _GAMMA)
+
+
+def uniform(seed: torch.Tensor, t: torch.Tensor, site: int,
+            n: int) -> torch.Tensor:
+    """[B, n] float32 uniforms in [0, 1) with 24 random bits (exact)."""
+    bits = _srl(random_bits(seed, t, site, n), 40)
+    return bits.to(torch.float32) * (2.0 ** -24)
+
+
+def uniform64(seed: torch.Tensor, t: torch.Tensor, site: int,
+              n: int) -> torch.Tensor:
+    """[B, n] float64 uniforms in [0, 1) with 53 random bits (exact)."""
+    bits = _srl(random_bits(seed, t, site, n), 11)
+    return bits.to(torch.float64) * (2.0 ** -53)
+
+
+# ---------------------------------------------------------------------------
+# Arrival laws
+# ---------------------------------------------------------------------------
+
+#: Truncation of the Poisson inverse-CDF tables: the mass left beyond the
+#: last column is below this.
+POISSON_TAIL = 1e-12
+
+
+def poisson_table(rates, device=None) -> torch.Tensor:
+    """[B, K] float64 Poisson CDFs, cdf[b, k] = P(X <= k) for rate[b].
+
+    K is the smallest column count that leaves less than `POISSON_TAIL`
+    mass beyond the table for every rate of the batch."""
+    rates = np.asarray(rates, np.float64).reshape(-1)
+    top = float(rates.max()) if rates.size else 0.0
+    K = int(stats.poisson.isf(POISSON_TAIL, top)) + 2 if top > 0 else 1
+    cdf = stats.poisson.cdf(np.arange(K)[None, :], rates[:, None])
+    cdf[rates <= 0] = 1.0
+    return torch.as_tensor(cdf, dtype=torch.float64, device=device)
+
+
+def poisson_from_uniform(u: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF Poisson counts: u [B] float64 in [0, 1) against each
+    sim's table [B, K] -> [B] float32 counts (#{k : cdf[k] <= u})."""
+    return (cdf <= u[:, None]).sum(1).to(torch.float32)
+
+
+def poisson_arrivals(lams, T: int, seed: int = 0,
+                     device=None) -> torch.Tensor:
+    """[L, T] Poisson query counts, one row per rate of ``lams``, all rows
+    from one uniform stream of ``seed`` (common random numbers)."""
+    dev = torch.device(device) if device is not None else None
+    cdf = poisson_table(lams, device=dev)
+    t = torch.arange(T, device=dev)
+    s = torch.full((T,), int(seed), dtype=torch.long, device=dev)
+    u = uniform64(s, t, SITE_ARRIVAL, 1)[:, 0]                       # [T]
+    return torch.stack([poisson_from_uniform(u, row.expand(T, -1))
+                        for row in cdf])
