@@ -6,15 +6,18 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It needs nothing but the checkout: the CUDA kernels are built from
-`src/repro_torch/kernels/*/csrc/*.cu` with nvcc.  Phases, each of which
-raises (and the script exits non-zero) on failure:
+`src/repro_torch/kernels/*/csrc/*.cu` with nvcc, one process per source,
+all at once.  Phases, each of which raises (and the script exits non-zero)
+on failure:
 
-  1. device and build: the card, torch and CUDA versions, kernel build time;
-  2. each kernel against its plain PyTorch version on the card at the main
-     path's shapes (B=1512 sims, N=16, C=12, E=51, NC=4), random and
-     tie-heavy inputs: outputs must be bit-identical; times with CUDA
-     events beside each kernel's bound;
-  3. the main path at full width: `run_fleet` over 1,512 pi3_reg sims (8
+  1. device and build: the card, torch and CUDA versions, full-float32
+     matmuls (no TF32), kernel build time;
+  2. each kernel against its plain PyTorch version on the card, random and
+     tie-heavy inputs, outputs bit-identical, device times beside each
+     kernel's bound: bp_slot at the fleet path's shapes (B=1512 sims, N=16,
+     C=12, E=51, NC=4); bp_topk at the serve path's decode shape (T=4,
+     E=32, k=8) and at (8, 32, 8), (1024, 64, 6), (4096, 32, 8);
+  3. the fleet path at full width: `run_fleet` over 1,512 pi3_reg sims (8
      registry families x topo_seeds 0-20 x 3 rates x 3 seeds, padded to the
      atlas hull (16, 51, 4)), T=4096, chunk=512, early stop; results are
      held to the exact LP bound, and the kernels' launch counters to the
@@ -24,7 +27,17 @@ raises (and the script exits non-zero) on failure:
      port's plain path on the CPU, all 1,512 sims for 256 slots from one
      random state with the same counter-based noise: stepped from the same
      carry each slot, the two agree to rounding (see `phase_reference`);
-  5. a short wireless_grid run, so the greedy-matching branch runs.
+  5. a short wireless_grid run, so the greedy-matching branch runs;
+  6. the MoE router (`core/router.route`) in the loop of
+     benchmarks/bench_router.py: backpressure must balance better than
+     plain top-k;
+  7. the serve path at full width: granite-moe-1b-a400m (24 layers, 32
+     experts top-8, random float32 weights from a seed), `Engine(slots=4,
+     max_len=128)` answers 8 requests; every request must finish and
+     bp_topk launch 24 times per decode step; ms per step, tokens/s and a
+     profiled step's device-busy share;
+  8. the serve path on the card against the CPU at full width and 4
+     layers: the same experts in every layer, logits within 1e-4.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is
@@ -57,6 +70,13 @@ LP_TOL = 1.02            # windowed rates may exceed the bound by drain noise
 #: comp_balance_decide panels that each pairing does not read (bp_slot.cu).
 BALANCE_UNREAD = {"fifo": ("x_net",), "bound": ("ca1", "ca2", "cc")}
 REF_SLOTS = 256          # slots of the card-vs-CPU comparison (phase 4)
+#: bp_topk shapes (T, E, k): one decode step of the serve phase (4 slots,
+#: granite's 32 experts top-8) first, then the kernel table's three.
+TOPK_SHAPES = ((4, 32, 8), (8, 32, 8), (1024, 64, 6), (4096, 32, 8))
+SERVE_ARCH = "granite-moe-1b-a400m"
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 128, 8, 12
+REF_LAYERS, REF_STEPS = 4, 4    # the serve path's card-vs-CPU check
+LOGIT_ATOL = 1e-4               # its logits tolerance (see phase_serve_ref)
 
 #: Published peaks of the H100 SXM (NVIDIA's data sheet, at 700 W): memory
 #: bytes/s and float32 operations/s outside the tensor cores.  The bounds
@@ -187,6 +207,15 @@ def balance_inputs(gen, ties: bool, dev):
     return [eps.to(dev)] + [p[k].contiguous().to(dev) for k in PANELS]
 
 
+def bound_of(nbytes: int, nops: int, peaks):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the operations over the float32
+    rate."""
+    t_bytes, t_ops = nbytes / peaks[0], nops / peaks[1]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def bits_equal(a, b) -> bool:
     import torch
     if a.dtype == torch.float32:
@@ -205,7 +234,6 @@ def phase_kernels(dev, peaks):
     import torch
     from repro_torch.kernels.bp_slot import kernel as K
     from repro_torch.kernels.bp_slot import ref as R
-    mem_rate, f32_rate = peaks
     gen = torch.Generator().manual_seed(0)
     rows = {}
 
@@ -246,9 +274,6 @@ def phase_kernels(dev, peaks):
         wrapper_ms=device_ms(lambda: K.slot_route_decide(Qf, m, l)),
         wall_ms=wall_ms(lambda: K.slot_route_decide(Qf, m, l)),
         plain_ms=device_ms(lambda: R.slot_route_ref(Qf, m, l)),
-        bound_ms=max(nbytes / mem_rate, nops / f32_rate) * 1e3,
-        bound_by="bytes" if nbytes / mem_rate >= nops / f32_rate
-        else "operations",
         library_ms=None, bytes=nbytes, ops=nops)
 
     # comp_balance_decide
@@ -287,11 +312,10 @@ def phase_kernels(dev, peaks):
         wrapper_ms=device_ms(lambda: K.comp_balance_decide(*args, **kw)),
         wall_ms=wall_ms(lambda: K.comp_balance_decide(*args, **kw)),
         plain_ms=device_ms(lambda: R.comp_balance_ref(*args, **kw)),
-        bound_ms=max(nbytes / mem_rate, nops / f32_rate) * 1e3,
-        bound_by="bytes" if nbytes / mem_rate >= nops / f32_rate
-        else "operations",
         library_ms=None, bytes=nbytes, ops=nops)
+    rows["bp_topk"] = phase_topk(dev, peaks)
     for r in rows.values():
+        r["bound_ms"], r["bound_by"] = bound_of(r["bytes"], r["ops"], peaks)
         log(f"kernel {r['name']}: {r['ms']:.6f} ms on the card (wrapper "
             f"{r['wrapper_ms']:.6f} ms of device time, {r['wall_ms']:.6f} ms "
             f"between host events; plain {r['plain_ms']:.6f} ms on the card"
@@ -299,6 +323,78 @@ def phase_kernels(dev, peaks):
             f"({r['bytes']} B, {r['ops']} ops), max_abs_err "
             f"{r['max_abs_err']}, library: no single PyTorch call")
     return rows
+
+
+def topk_inputs(gen, T: int, E: int, ties: bool, bias: str, dev):
+    """Gate logits [T, E] and bias [E]: normal logits, or integer-valued
+    ones in [-2, 2] (exact ties in every row, and one all-equal row); bias
+    zero, uniform [0, 0.5), or multiples of 1/8 (ties survive it)."""
+    import torch
+    if ties:
+        s = torch.randint(-2, 3, (T, E), generator=gen).float()
+        s[0] = 1.0
+    else:
+        s = torch.randn((T, E), generator=gen)
+    if bias == "zero":
+        b = torch.zeros(E)
+    elif bias == "step":
+        b = torch.randint(0, 2, (E,), generator=gen).float() / 8
+    else:
+        b = torch.rand((E,), generator=gen) * 0.5
+    return s.to(dev), b.to(dev)
+
+
+def phase_topk(dev, peaks):
+    """bp_topk against its plain version, bit for bit, at the serving
+    path's decode shape and the three shapes of the kernel table, on random
+    and tie-heavy inputs; device times at each shape.  The row reported is
+    the serving path's own shape: one decode step of `Engine(slots=4)`."""
+    import torch
+    from repro_torch.kernels.bp_topk import kernel as K
+    from repro_torch.kernels.bp_topk.ref import bp_topk_ref
+    gen = torch.Generator().manual_seed(1)
+    errs, timed = [], {}
+    for T, E, k in TOPK_SHAPES:
+        for ties, bias in ((False, "random"), (True, "zero"), (True, "step")):
+            s, b = topk_inputs(gen, T, E, ties, bias, dev)
+            idx, w = K.bp_topk(s, b, k)
+            ridx, rw = bp_topk_ref(s, b, k)
+            torch.cuda.synchronize()
+            check(bits_equal(idx, ridx) and bits_equal(w, rw),
+                  f"bp_topk differs from its plain version at T={T}, E={E}, "
+                  f"k={k}, ties={ties}, bias={bias}: "
+                  f"{int((idx != ridx).sum())} indices, weights by "
+                  f"{float((w - rw).abs().max())}")
+            if ties and bias == "zero":
+                check(bool((idx[0] == torch.arange(k, device=dev)).all()),
+                      "an all-equal row must pick experts 0..k-1")
+            errs += [(idx, ridx), (w, rw)]
+            if not ties:
+                timed[(T, E, k)] = (s, b)
+    for (T, E, k), (s, b) in timed.items():
+        nbytes = 4 * T * E + 4 * E + (4 + 4) * T * k
+        # max, subtract, exp, sum, divide, bias per entry; k argmax passes;
+        # k adds and k divides for the weights
+        nops = T * ((6 + k) * E + 2 * k)
+        row = dict(
+            name="bp_topk", route="cuda",
+            source="src/repro_torch/kernels/bp_topk/csrc/bp_topk.cu",
+            replaces="src/repro/kernels/bp_topk/kernel.py:43",
+            max_abs_err=max_abs_err(errs), shape=(T, E, k),
+            ms=device_ms(lambda: K.bp_topk(s, b, k), match="bp_topk_kernel"),
+            wrapper_ms=device_ms(lambda: K.bp_topk(s, b, k)),
+            wall_ms=wall_ms(lambda: K.bp_topk(s, b, k)),
+            plain_ms=device_ms(lambda: bp_topk_ref(s, b, k)),
+            library_ms=None, bytes=nbytes, ops=nops)
+        t_ms, by = bound_of(nbytes, nops, peaks)
+        log(f"kernel bp_topk at T={T}, E={E}, k={k}: {row['ms']:.6f} ms on "
+            f"the card (wrapper {row['wrapper_ms']:.6f} ms of device time, "
+            f"{row['wall_ms']:.6f} ms between host events; plain "
+            f"{row['plain_ms']:.6f} ms on the card), bound "
+            f"{t_ms * 1e3:.6f} us by {by} ({nbytes} B, {nops} ops)")
+        if (T, E, k) == TOPK_SHAPES[0]:
+            main_row = row
+    return main_row
 
 
 # ---------------------------------------------------------------------------
@@ -648,6 +744,236 @@ def phase_wireless(dev):
         f"vs bound {bound:.3f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the MoE router; Phase 7: serving at full width; Phase 8: the
+# serve path on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def phase_router(dev):
+    """The loop of benchmarks/bench_router.py on the card: E=64, T=1024,
+    K=6, 40 steps of skewed logits (4 hot experts), plain / aux /
+    backpressure.  Backpressure must balance better than plain."""
+    import torch
+    from repro_torch.core.router import (RouterConfig, init_router_state,
+                                         load_violation, route)
+    E, T, K, STEPS = 64, 1024, 6, 40
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = torch.randn((T, E), generator=gen, device=dev) * 0.5
+    skew = torch.zeros(E, device=dev)
+    skew[:4] += 3.0
+    noise = [torch.randn((T, E), generator=gen, device=dev)
+             for _ in range(STEPS)]
+    out = {}
+    for mode, beta in (("plain", 0.0), ("aux", 0.0), ("backpressure", 2.0)):
+        cfg = RouterConfig(n_experts=E, k=K, mode=mode, beta=beta)
+        state = init_router_state(E, device=dev)
+        loads = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(STEPS):
+            r = route(cfg, state, base + skew[None, :] + 0.1 * noise[i])
+            state = r.new_state
+            loads.append(r.load)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / STEPS * 1e6
+        out[mode] = float(load_violation(torch.stack(loads[-10:]).mean(0)))
+        log(f"router/{mode}: load_violation {out[mode]:.4f}, {us:.1f} us per "
+            f"routing call (host clock)")
+    check(out["backpressure"] < out["plain"],
+          f"backpressure does not balance better than plain: {out}")
+    return out
+
+
+def serve_model(dev, n_layers=None, seed: int = 0):
+    """(config, params) of the serving arch at full width (depth cut to
+    ``n_layers`` when given), float32 weights drawn on ``dev``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, split_tree
+    cfg = get_config(SERVE_ARCH)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, _ = split_tree(get_model(cfg).init(gen))
+    return cfg, params
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def phase_serve(dev):
+    """granite-moe-1b-a400m at full width on the card through
+    `Engine.run_until_done`: 8 requests drawn as the JAX CLI draws them,
+    every MoE layer's routing through bp_topk (24 launches per decode
+    step); then the step time and one profiled step's device-busy share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.bp_topk import kernel as K
+    from repro_torch.launch.serve import Engine
+    t0 = time.perf_counter()
+    cfg, params = serve_model(dev)
+    torch.cuda.synchronize()
+    n_params = tree_numel(params)
+    log(f"serve: {cfg.name} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, expert "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}), {n_params:,} float32 params "
+        f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    eng = Engine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                 device=dev)
+    rng = np.random.default_rng(0)
+    for _ in range(SERVE_REQUESTS):
+        plen = int(rng.integers(4, 16))
+        eng.submit(list(rng.integers(0, cfg.vocab, plen)), SERVE_MAX_NEW)
+    K.bp_topk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finished = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = K.bp_topk.launches, eng.steps
+    check(sorted(finished) == list(range(SERVE_REQUESTS)),
+          f"served {sorted(finished)} of {SERVE_REQUESTS} requests")
+    outs = [finished[r].out for r in sorted(finished)]
+    check(all(len(o) == SERVE_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
+              for o in outs), f"malformed outputs {outs}")
+    check(launches == cfg.n_layers * steps > 0,
+          f"bp_topk launched {launches} times in {steps} decode steps, "
+          f"expected {cfg.n_layers} per step")
+    n_tok = sum(len(o) for o in outs)
+    ms_step = wall / steps * 1e3
+
+    # one more decode step, unprofiled and then profiled
+    toks = eng._last_tok.copy()
+    step_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = eng._step(toks)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    check(tuple(logits.shape) == (SERVE_SLOTS, cfg.vocab) and
+          bool(torch.isfinite(logits).all()), "non-finite or misshapen logits")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._step(toks)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    med = statistics.median(step_ms)
+    if evs:
+        dev_ms = sum(e.device_time for e in evs) / 1e3
+        kinds = {}
+        for e in evs:
+            kinds[e.name] = kinds.get(e.name, 0) + e.device_time / 1e3
+        topk = sorted(kinds.items(), key=lambda kv: -kv[1])[:6]
+        busy = (f"{len(evs)} CUDA device activities, {dev_ms:.4f} ms of "
+                f"device time per decode step, busy {dev_ms / med:.4f} of "
+                f"the unprofiled step's {med:.4f} ms; most time: " + "; ".join(
+                    f"{n[:50]} {t:.4f} ms" for n, t in topk))
+    else:
+        busy = "device-busy share not measured (no device activity traced)"
+    log(f"serve: {len(finished)} requests, {n_tok} tokens, {steps} decode "
+        f"steps (prefill included) in {wall:.3f} s: {ms_step:.4f} ms per "
+        f"decode step, {n_tok / wall:.2f} generated tokens/s; bp_topk "
+        f"launches {launches} = {cfg.n_layers} x {steps}; {busy}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    for rid in sorted(finished)[:2]:
+        log(f"  req {rid}: out={finished[rid].out}")
+    return launches
+
+
+def phase_serve_reference(dev):
+    """The serve path on the card against the port's plain path on the
+    CPU, at full width and REF_LAYERS layers, from the same weights and
+    the same empty caches, REF_STEPS decode steps fed the same tokens.
+
+    Every layer's selected experts must be equal (a differing row prints
+    its margin between the k-th and (k+1)-th sel and fails).  The logits
+    must agree within LOGIT_ATOL: float32 sums in another order differ by
+    ~1e-6 here, while a TF32 matmul (10-bit mantissa) in the unembedding
+    alone would be off by ~3e-4 (32 random-signed terms of 0.02 x 2^-11 per
+    logit), so the gate catches a lost float32."""
+    import numpy as np
+    import torch
+    from repro_torch.models import get_model, moe
+    cfg, params = serve_model(dev, n_layers=REF_LAYERS, seed=1)
+    cpu = torch.device("cpu")
+    params_cpu = to_device_tree(params, cpu)
+    api = get_model(cfg)
+    caches = {d: api.init_decode(SERVE_SLOTS, SERVE_MAX_LEN, torch.float32,
+                                 device=d) for d in (dev, cpu)}
+    H = {d: api.init_state(device=d).router_H for d in (dev, cpu)}
+    rng = np.random.default_rng(2)
+    routed = []
+    original = moe._route
+
+    def recording_route(cfg_, p, x_flat, rs, *, use_kernel=False):
+        out = original(cfg_, p, x_flat, rs, use_kernel=use_kernel)
+        routed.append((out[0], x_flat, p["router"], rs.H))
+        return out
+    worst = 0.0
+    t0 = time.perf_counter()
+    moe._route = recording_route
+    try:
+        for step in range(REF_STEPS):
+            toks = rng.integers(0, cfg.vocab, SERVE_SLOTS)
+            logits = {}
+            for d, p in ((dev, params), (cpu, params_cpu)):
+                routed.clear()
+                logits[d], caches[d] = api.decode_step(
+                    p, caches[d], {"tokens": torch.as_tensor(toks, device=d)},
+                    activ_dtype=torch.float32, router_H=H[d])
+                logits[d] = logits[d].cpu()
+                if d == dev:
+                    card_routes = [r[0].cpu() for r in routed]
+                else:
+                    cpu_routes = list(routed)
+            check(len(card_routes) == len(cpu_routes) == cfg.n_layers,
+                  f"{len(card_routes)}/{len(cpu_routes)} routing calls for "
+                  f"{cfg.n_layers} layers")
+            for layer, (ci, (ri, x, wr, h)) in enumerate(zip(card_routes,
+                                                             cpu_routes)):
+                if torch.equal(ci, ri):
+                    continue
+                row = int((ci != ri).any(-1).reshape(-1).nonzero()[0])
+                lg = (x.reshape(-1, x.shape[-1])[row] @ wr).double()
+                cap = max(x.shape[0] * x.shape[1] * cfg.top_k / cfg.n_experts,
+                          1.0)
+                sel = torch.softmax(lg, -1) - h.double() / cap
+                srt = torch.sort(sel, descending=True).values
+                raise SmokeFailure(
+                    f"serve reference: step {step}, layer {layer}, row {row}: "
+                    f"card picked {ci.reshape(-1, cfg.top_k)[row].tolist()}, "
+                    f"CPU {ri.reshape(-1, cfg.top_k)[row].tolist()}; margin "
+                    f"between the k-th and (k+1)-th sel "
+                    f"{float(srt[cfg.top_k - 1] - srt[cfg.top_k]):.3e}")
+            diff = float((logits[dev] - logits[cpu]).abs().max())
+            scale = float(logits[cpu].abs().max())
+            check(diff <= LOGIT_ATOL, f"serve reference: step {step}: logits "
+                  f"differ by {diff:.3e} > {LOGIT_ATOL} (max |logit| "
+                  f"{scale:.3f})")
+            worst = max(worst, diff)
+    finally:
+        moe._route = original
+    log(f"serve reference: {cfg.name} full width at {REF_LAYERS} layers, "
+        f"{REF_STEPS} decode steps x {SERVE_SLOTS} slots, card vs CPU from "
+        f"the same weights and caches ({time.perf_counter() - t0:.1f} s): "
+        f"every layer's experts equal, logits within {worst:.3e} (gate "
+        f"{LOGIT_ATOL}, max |logit| {scale:.3f})")
+
+
+def to_device_tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device_tree(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 def main() -> int:
     try:
         import torch
@@ -672,18 +998,27 @@ def main() -> int:
         f"{torch.version.cuda}; bounds use the H100 SXM peaks "
         f"{peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32")
 
+    # Router logits feed a top-k: a TF32 matmul would flip selections.
+    check(torch.get_float32_matmul_precision() == "highest" and
+          not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls must run in full float32 (no TF32)")
+
     from repro_torch.kernels import _build
     secs = _build.build_all()
-    log(f"build: {len(_build.sources())} source(s) with nvcc in {secs:.2f} s")
+    log(f"build: {len(_build.sources())} source(s) with nvcc in parallel in "
+        f"{secs:.2f} s")
 
     rows = phase_kernels(dev, peaks)
     res, jobs, launches, wall = phase_main(dev)
-    for k, r in rows.items():
-        r["launches"] = launches[k]
     phase_profile(dev, wall / res.slot_steps * 1e3)
     phase_reference(dev)
     phase_determinism(dev, res, jobs)
     phase_wireless(dev)
+    phase_router(dev)
+    launches["bp_topk"] = phase_serve(dev)
+    phase_serve_reference(dev)
+    for k, r in rows.items():
+        r["launches"] = launches[k]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

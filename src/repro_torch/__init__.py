@@ -1,10 +1,23 @@
 """PyTorch/CUDA port of the backpressure network-computation system.
 
 A package beside the JAX reference `repro`, with the same subpackage and
-module names (`core`, `kernels.bp_slot`, `sim`, `fleet`).  It imports
-torch, numpy and scipy, never jax and nothing of `repro`.  Every state
-tensor carries a leading fleet axis [B]; the per-slot decisions run in
-hand-written CUDA kernels on the card (`kernels/bp_slot/csrc/bp_slot.cu`)
-and in their plain PyTorch versions on the CPU.  Entry points run on CUDA
-unless the caller passes ``device="cpu"``.
+module names.  It imports torch, numpy and scipy, never jax and nothing of
+`repro`.
+
+  * `core` — graph, capacity LP, batched queue state, slot policies, and
+    the backpressure MoE router (`core.router`);
+  * `kernels.bp_slot` — the per-slot routing and comp/balance decisions
+    (`csrc/bp_slot.cu`);
+  * `kernels.bp_topk` — the fused backpressure top-k gate of MoE routing
+    (`csrc/bp_topk.cu`);
+  * `sim`, `fleet` — the trace simulator and the batched fleet engine;
+    every state tensor carries a leading fleet axis [B];
+  * `configs`, `models` — the ported architectures and the dense/MoE
+    decoder-only transformer's decode path;
+  * `launch.serve` — the continuous-batching serving `Engine`.
+
+The kernels are hand-written CUDA, built with nvcc at first use; on CPU
+tensors their wrappers run the plain PyTorch versions.  Entry points
+(`run_fleet`, `simulate`, `Engine`, `launch.serve.main`, ...) run on CUDA
+unless the caller passes ``device="cpu"``, and raise without a card.
 """

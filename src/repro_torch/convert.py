@@ -1,10 +1,10 @@
-"""Carry problems and queue state across from numpy.
+"""Carry problems, queue state and model weights across from numpy.
 
-The port has no weights: what has to match the reference are the problem
-constants and the queue state.  A caller (the parity tests) turns the
-reference's objects into dicts of numpy arrays with `np.asarray`, and these
-functions build the port's tensors from them — the port itself never sees
-a jax object.
+What has to match the reference are the problem constants, the queue
+state and, for the models, the weights.  A caller (the parity tests) turns
+the reference's objects into dicts of numpy arrays with `np.asarray`, and
+these functions build the port's tensors from them — the port itself never
+sees a jax object.
 """
 from __future__ import annotations
 
@@ -68,3 +68,12 @@ def net_state_from_numpy(d: Dict[str, np.ndarray], device=None) -> NetState:
 def net_state_to_numpy(state: NetState) -> Dict[str, np.ndarray]:
     """The state's fields as batched numpy arrays."""
     return {k: getattr(state, k).detach().cpu().numpy() for k in STATE_FIELDS}
+
+
+def params_from_numpy(tree, device=None):
+    """A model's parameters from the reference's value tree (after
+    `split_tree`) with every leaf turned into a numpy array: nested dicts
+    of tensors of the same names, shapes and dtypes, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.as_tensor(np.array(tree), device=device)

@@ -10,7 +10,7 @@ Libraries go to ``build/repro_torch/`` at the checkout's root (listed in
 .gitignore), named by a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  Nothing is built when a
 module is imported: `load` builds at a kernel's first CUDA call, and
-`build_all` builds every source up front.  ``-fmad=false`` and the absence
+`build_all` builds every source up front, one nvcc per source, all at once.  ``-fmad=false`` and the absence
 of ``--use_fast_math`` are part of the kernels' bit-exactness contract (see
 the sources).
 """
@@ -25,6 +25,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 PKG_ROOT = pathlib.Path(__file__).resolve().parents[1]      # src/repro_torch
@@ -33,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
+_SOURCE_LOCKS: Dict[pathlib.Path, threading.Lock] = {}
 _LOADED: Dict[pathlib.Path, ctypes.CDLL] = {}
 
 
@@ -63,6 +65,8 @@ def build(src: pathlib.Path) -> pathlib.Path:
     """The library of one source, compiled first if it is not there."""
     out = library_path(src)
     with _LOCK:
+        lock = _SOURCE_LOCKS.setdefault(src, threading.Lock())
+    with lock:                    # one build per source; sources in parallel
         if out.is_file():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -80,10 +84,13 @@ def build(src: pathlib.Path) -> pathlib.Path:
 
 
 def build_all() -> float:
-    """Build every source; returns the wall seconds spent."""
+    """Build every source, all nvcc processes at once; returns the wall
+    seconds spent."""
     t0 = time.perf_counter()
-    for src in sources():
-        build(src)
+    srcs = sources()
+    with ThreadPoolExecutor(max_workers=max(len(srcs), 1)) as pool:
+        for fut in [pool.submit(build, src) for src in srcs]:
+            fut.result()
     return time.perf_counter() - t0
 
 

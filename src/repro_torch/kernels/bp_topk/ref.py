@@ -1,0 +1,65 @@
+"""Plain PyTorch version of the fused backpressure top-k gate (bp_topk).
+
+Port of what `repro.kernels.bp_topk.kernel._bp_topk_kernel` computes for
+every row of [T, E] scores:
+
+  1. the row max m;
+  2. probs = exp(s - m) / sum(exp(s - m));
+  3. sel = probs - bias;
+  4. k passes of argmax over sel, lowest index on ties, each pass masking
+     its pick with NEG (the reference kernel's -1e30);
+  5. w = the picked probs over max(their sum, 1e-9), the sum taken in pick
+     order j = 0..k-1.
+
+It spells the CUDA kernel's order of additions (`csrc/bp_topk.cu`), so on
+the card the kernel is held to it bit for bit: the row sum of exp is the
+kernel's warp reduction, one partial per lane (lane l adds the entries
+l, l+32, l+64, ... in that order) and then halving adds over the 32 lanes
+(the butterfly of `__shfl_xor_sync`), with E padded by zeros to a
+multiple of 32.  The max and the argmax are exact in any order.  Against
+the JAX package it agrees to rounding, not bit for bit: XLA sums the
+softmax in another order.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30        # the reference kernel's mask value for picked experts
+WARP = 32
+
+
+def warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """[T, E] -> [T]: the kernel's warp reduction order (module docstring)."""
+    T, E = x.shape
+    R = -(-E // WARP)
+    x = torch.nn.functional.pad(x, (0, R * WARP - E)).reshape(T, R, WARP)
+    acc = torch.zeros((T, WARP), dtype=x.dtype, device=x.device)
+    for r in range(R):                       # each lane's strided partial
+        acc = acc + x[:, r]
+    width = WARP
+    while width > 1:                         # butterfly: offsets 16 .. 1
+        width //= 2
+        acc = acc[:, :width] + acc[:, width:]
+    return acc[:, 0]
+
+
+def bp_topk_ref(scores: torch.Tensor, bias: torch.Tensor, k: int):
+    """scores [T, E] float32 gate logits, bias [E] float32 (H / C).
+    Returns (idx [T, k] int32, w [T, k] float32)."""
+    T, E = scores.shape
+    m = scores.max(dim=1, keepdim=True).values
+    e = torch.exp(scores - m)
+    probs = e / warp_sum(e)[:, None]
+    work = probs - bias[None, :]
+    rows = torch.arange(T, device=scores.device)
+    idx = torch.empty((T, k), dtype=torch.int32, device=scores.device)
+    picked = torch.empty((T, k), dtype=torch.float32, device=scores.device)
+    wsum = torch.zeros((T,), dtype=torch.float32, device=scores.device)
+    for j in range(k):
+        best = torch.argmax(work, dim=1)     # first occurrence on ties
+        p = probs[rows, best]
+        idx[:, j] = best.to(torch.int32)
+        picked[:, j] = p
+        wsum = wsum + p
+        work[rows, best] = NEG
+    return idx, picked / torch.clamp(wsum, min=1e-9)[:, None]

@@ -1,0 +1,52 @@
+"""Uniform model API — the entry point the serving engine and tests use.
+
+Port of `repro.models.api` for the families the port runs (dense and MoE
+decoder-only transformers):
+
+  api = get_model(cfg)
+  params~ = api.init(gen, dtype)                    # Annotated tree
+  caches = api.init_decode(batch, max_len, dtype, device)
+  logits, caches = api.decode_step(params, caches, batch, ...)
+
+The other families raise NotImplementedError naming the ROADMAP item that
+ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from . import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: Any
+    mod: Any
+
+    def init(self, gen: torch.Generator, dtype=torch.float32):
+        return self.mod.init_lm(self.cfg, gen, dtype=dtype)
+
+    def init_state(self, device=None):
+        return transformer.init_model_state(self.cfg, device=device)
+
+    def init_decode(self, batch: int, max_len: int, dtype, device=None):
+        return self.mod.init_decode_caches(self.cfg, batch, max_len, dtype,
+                                           device=device)
+
+    def decode_step(self, params, caches, batch, *,
+                    activ_dtype=torch.bfloat16, router_H=None):
+        return self.mod.lm_decode_step(self.cfg, params, caches,
+                                       batch["tokens"],
+                                       activ_dtype=activ_dtype,
+                                       router_H=router_H)
+
+
+def get_model(cfg) -> ModelAPI:
+    if cfg.family in ("dense", "moe"):
+        return ModelAPI(cfg=cfg, mod=transformer)
+    raise NotImplementedError(
+        f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+        f"(ROADMAP A13, LLM substrate)")

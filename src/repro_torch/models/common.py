@@ -1,0 +1,167 @@
+"""Shared model building blocks: annotated params, norms, RoPE, embeddings.
+
+Port of `repro.models.common`.  Params are nested dicts of tensors.  During
+init every leaf is an `Annotated(value, axes)` carrying the reference's
+logical axis names; `split_tree` separates the value tree from the axes
+tree.  Random init draws from an explicit `torch.Generator`, on the
+generator's device, as a normal truncated to +-2 sigma times the scale —
+the reference's distribution, though not its (threefry) numbers: parity
+tests carry the reference's weights across with `convert.params_from_numpy`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple, Sequence
+
+import torch
+
+
+class Annotated(NamedTuple):
+    value: Any                      # torch.Tensor
+    axes: tuple                     # logical axis names, len == value.ndim
+
+
+@dataclasses.dataclass
+class Init:
+    """Parameter factory drawing from ``gen`` on the generator's device.
+
+    `prefix` prepends stacked-layer dims (logical axis "layers") to every
+    param, to build the [L, ...] weight stacks in one shot.
+    """
+    gen: torch.Generator
+    dtype: Any = torch.float32
+    prefix: tuple = ()
+
+    def stacked(self, *ns: int) -> "Init":
+        return dataclasses.replace(self, prefix=self.prefix + tuple(ns))
+
+    def param(self, shape: Sequence[int], axes: Sequence[str | None],
+              scale: float | None = None, kind: str = "normal") -> Annotated:
+        shape = tuple(int(s) for s in shape)
+        if len(axes) != len(shape):
+            raise ValueError(f"axes {axes} do not name shape {shape}")
+        if scale is None:                    # the reference's fan-in rule
+            fan_in = shape[0] if len(shape) >= 1 else 1
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        full_shape = tuple(self.prefix) + shape
+        full_axes = ("layers",) * len(self.prefix) + tuple(axes)
+        dev = self.gen.device
+        if kind == "zeros":
+            v = torch.zeros(full_shape, dtype=self.dtype, device=dev)
+        else:
+            v = torch.empty(full_shape, dtype=torch.float32, device=dev)
+            torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,
+                                        generator=self.gen)
+            v = (v * scale).to(self.dtype)
+        return Annotated(v, full_axes)
+
+
+def split_tree(tree):
+    """(annotated tree of dicts) -> (value tree, axes tree)."""
+    if isinstance(tree, Annotated):
+        return tree.value, tree.axes
+    values, axes = {}, {}
+    for k, v in tree.items():
+        values[k], axes[k] = split_tree(v)
+    return values, axes
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None,
+            eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    if gamma is not None:
+        x = x * (1.0 + gamma.to(torch.float32))
+    return x.to(dt)
+
+
+def norm(cfg, x: torch.Tensor, gamma: torch.Tensor | None) -> torch.Tensor:
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet "
+                                  f"(ROADMAP A13)")
+    return rmsnorm(x, gamma)
+
+
+def init_norm(cfg, ini: Init, d: int) -> Annotated | None:
+    if cfg.norm == "layernorm_nonparam":
+        return None
+    return ini.param((d,), ("embed",), kind="zeros")   # gamma stored as (1+g)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (GPT-NeoX half-rotation)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] (or [S]) integer."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)             # [D/2]
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freqs     # [B, S, D/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(cfg, ini: Init) -> dict:
+    p = {"table": ini.param((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                            scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["head"] = ini.param((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    return p
+
+
+def embed(cfg, p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Table lookup.  The reference's sqrt(d_model) scaling for Gemma comes
+    with that family (ROADMAP A13); no ported config needs it."""
+    return p["table"].to(dtype)[tokens]
+
+
+def unembed(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits in the activation dtype."""
+    if cfg.tie_embeddings:
+        logits = x @ p["table"].to(x.dtype).T
+    else:
+        logits = x @ p["head"].to(x.dtype)
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = (torch.tanh(logits.to(torch.float32) / c) * c).to(x.dtype)
+    return logits
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    return (torch.nn.functional.silu(g) * u) @ w_down.to(x.dtype)
+
+
+def init_mlp(cfg, ini: Init, d: int | None = None,
+             ff: int | None = None) -> dict:
+    d = d or cfg.d_model
+    ff = ff or cfg.d_ff
+    return {
+        "gate": ini.param((d, ff), ("embed", "ff")),
+        "up": ini.param((d, ff), ("embed", "ff")),
+        "down": ini.param((ff, d), ("ff", "embed")),
+    }

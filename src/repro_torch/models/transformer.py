@@ -1,0 +1,140 @@
+"""Decoder-only transformer stack (dense and MoE): init and decode.
+
+Port of the decode half of `repro.models.transformer` for stacks without
+the local/global pattern.  Layer params are stacked ([L, ...] leading
+dims) as in the reference; its `layer_scan` over the stack becomes a
+Python loop over the layers.  The training and prefill forwards
+(`block_fwd`, `stack_fwd`, `lm_logits`, `lm_loss`) and the local/global
+pattern wait for later slices (ROADMAP A13).
+
+Decode routes every MoE layer through the fused `bp_topk` gate (the CUDA
+kernel on the card).  As in the reference, `lm_decode_step` takes per-layer
+router queues H and drops each layer's updated H: at decode the caller's H
+is the bias.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core.router import RouterState
+from .attention import KVCache, decode_attention, init_attn, init_cache
+from .common import (Init, embed, init_embedding, init_mlp, init_norm, norm,
+                     swiglu, unembed)
+from .moe import init_moe, moe_ffn
+
+
+class ModelState(NamedTuple):
+    """Non-parameter model state: per-MoE-layer router queues H."""
+    router_H: Optional[torch.Tensor]    # [L_moe, E] or None
+
+
+def _check_family(cfg) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.local_global:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} with local_global="
+            f"{cfg.local_global} is not ported yet (ROADMAP A13)")
+
+
+# ---------------------------------------------------------------------------
+# One block
+# ---------------------------------------------------------------------------
+
+def init_block(cfg, ini: Init, *, moe: bool) -> dict:
+    p = {
+        "ln1": init_norm(cfg, ini, cfg.d_model),
+        "attn": init_attn(cfg, ini),
+        "ln2": init_norm(cfg, ini, cfg.d_model),
+    }
+    if moe:
+        p["moe"] = init_moe(cfg, ini)
+    else:
+        p["mlp"] = init_mlp(cfg, ini)
+    return {k: v for k, v in p.items() if v is not None}
+
+
+def block_decode(cfg, p: dict, x, cache: KVCache, *, window, router_H=None):
+    """One token through one block: (x [B, 1, d], cache) -> (x', cache,
+    router_H').  The MoE routing goes through `bp_topk`."""
+    h = norm(cfg, x, p.get("ln1"))
+    h, cache = decode_attention(cfg, p["attn"], h, cache, window=window)
+    x = x + h
+    h = norm(cfg, x, p.get("ln2"))
+    if "moe" in p:
+        rs = RouterState(H=router_H, steps=torch.zeros(
+            (), dtype=torch.int32, device=x.device))
+        h, rs_new, _ = moe_ffn(cfg, p["moe"], h, rs, group_size=x.shape[0],
+                               dropless=True, use_kernel=True)
+        router_H = rs_new.H
+    else:
+        h = swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
+    return x + h, cache, router_H
+
+
+# ---------------------------------------------------------------------------
+# Stacks
+# ---------------------------------------------------------------------------
+
+def init_stack(cfg, ini: Init) -> dict:
+    _check_family(cfg)
+    return {"layers": init_block(cfg, ini.stacked(cfg.n_layers),
+                                 moe=cfg.family == "moe")}
+
+
+def init_model_state(cfg, device=None) -> ModelState:
+    if cfg.family == "moe":
+        return ModelState(router_H=torch.zeros(
+            (cfg.n_layers, cfg.n_experts), dtype=torch.float32,
+            device=device))
+    return ModelState(router_H=None)
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (dicts of [L, ...] tensors or stacked
+    KVCaches): views, so in-place cache updates reach the stack."""
+    if isinstance(tree, KVCache):
+        return KVCache(*(t[i] for t in tree))
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# LM wrapper: init / decode
+# ---------------------------------------------------------------------------
+
+def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
+    """Annotated parameter tree, drawn from ``gen`` on its device."""
+    ini = Init(gen=gen, dtype=dtype)
+    return {
+        "embed": init_embedding(cfg, ini),
+        "stack": init_stack(cfg, ini),
+        "ln_f": init_norm(cfg, ini, cfg.d_model),
+    }
+
+
+def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):
+    """Stacked caches mirroring the stack structure: {"layers": KVCache}
+    with a leading [L] axis on every field."""
+    _check_family(cfg)
+    c = init_cache(cfg, batch, max_len, dtype, window=cfg.window,
+                   device=device)
+    return {"layers": KVCache(*(
+        t[None].repeat(cfg.n_layers, *([1] * t.dim())) for t in c))}
+
+
+def lm_decode_step(cfg, params, caches, tokens, *,
+                   activ_dtype=torch.bfloat16, router_H=None):
+    """tokens: [B] int -> (logits [B, V], caches).  The caches are
+    updated in place (see `attention.decode_attention`)."""
+    _check_family(cfg)
+    x = embed(cfg, params["embed"], tokens[:, None], activ_dtype)
+    stack, stacked = params["stack"]["layers"], caches["layers"]
+    for i in range(cfg.n_layers):
+        H = None if router_H is None else router_H[i]
+        x, _, _ = block_decode(cfg, layer(stack, i), x, layer(stacked, i),
+                               window=cfg.window, router_H=H)
+    x = norm(cfg, x, params.get("ln_f"))
+    logits = unembed(cfg, params["embed"], x)[:, 0, :]
+    return logits, caches
