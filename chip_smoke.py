@@ -37,7 +37,29 @@ on failure:
      bp_topk launch 24 times per decode step; ms per step, tokens/s and a
      profiled step's device-busy share;
   8. the serve path on the card against the CPU at full width and 4
-     layers: the same experts in every layer, logits within 1e-4.
+     layers: the same experts in every layer, logits within 1e-4;
+  9. bp_route bit for bit against its plain version at bench_kernels'
+     shape (N=512, C=96, E=4096) on random and tie-heavy inputs, float32
+     and bfloat16, and once through its entry point `bp_route_op`;
+ 10. flash_attention against its plain version (1e-5 float32, 2e-2
+     bfloat16; bfloat16 outputs also within bf16 rounding of the plain
+     version's float32 result) at bench_kernels' tile (1, 8, 512, 128)
+     with 4 kv heads, causal, window 256; granite's heads (16 over 8, D=64)
+     at S=2,048, causal; and a ragged S=1,000, not causal; then at
+     granite's prefill shape (B=1, S=32,768, bfloat16) 17 windows of query
+     rows spread over the sequence against a plain computation within bf16
+     rounding, and device times of the kernel, the plain version (at
+     S=4,096: its scores do not fit at 32k) and SDPA beside the bound (both
+     products at the bf16 tensor-core rate);
+ 11. the prefill path at full width: granite-moe-1b-a400m (24 layers,
+     random float32 weights from a seed) through `make_prefill_step` at
+     B=1, S=32,768, bfloat16 activations, 2 timed prefills after a short
+     warm-up: finite [1, 1, 49155] logits, flash_attention and bp_topk 24
+     launches each per prefill, the new router queues finite and >= 0; ms
+     per prefill, tokens/s, peak memory, a profiled prefill's busy share;
+ 12. the prefill path on the card against the CPU at full width and 4
+     layers (B=2, S=256, float32): the same experts in every layer, equal
+     router queues, full and last-position logits within 1e-4.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is
@@ -77,11 +99,41 @@ SERVE_ARCH = "granite-moe-1b-a400m"
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 128, 8, 12
 REF_LAYERS, REF_STEPS = 4, 4    # the serve path's card-vs-CPU check
 LOGIT_ATOL = 1e-4               # its logits tolerance (see phase_serve_ref)
+#: bp_route at bench_kernels' shape: N nodes, C classes, E links.
+ROUTE_N, ROUTE_C, ROUTE_E = 512, 96, 4096
+#: flash_attention cases (B, H, KH, S, D, causal, window), T = S:
+#: bench_kernels' tile, granite's heads, a ragged non-causal S.
+FLASH_CASES = ((1, 8, 4, 512, 128, True, 256),
+               (1, 16, 8, 2048, 64, True, None),
+               (1, 16, 8, 1000, 64, False, None))
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:42
+PREFILL_B, PREFILL_S, PREFILL_WARM_S = 1, 32_768, 1024
+FLASH_PLAIN_S = 4096            # the plain version's timing shape
+#: Query-row windows (first row, rows) held to a plain computation at the
+#: prefill shape: the first 64-query block, one across the edge of the
+#: first two, a ragged start, the middle across a block edge, the last 256
+#: rows; and FLASH_RANDOM_WINDOWS of 64 rows at random starts.
+FLASH_WINDOWS = ((0, 64), (32, 64), (4001, 64), (PREFILL_S // 2 - 32, 64),
+                 (PREFILL_S - 256, 256))
+FLASH_RANDOM_WINDOWS = 12
+#: (atol, rtol) of a bf16 output against float32 math: rounding to bf16
+#: moves a value by at most 2^-8 of itself; 1e-5 covers float32 summation
+#: order.
+FLASH_BF16_ROUNDING = (1e-5, 2.0 ** -8)
+PREFILL_REF_B, PREFILL_REF_S = 2, 256   # the prefill's card-vs-CPU check
+#: Slack on a near-tie's margin beyond the devices' measured difference:
+#: well above float32 rounding of a gate score in [-1, 1] (6e-8), far below
+#: the typical gap between neighbouring scores (~1e-3).
+NEAR_TIE_SLACK = 1e-6
+LAYER_RTOL = 1e-5       # a layer's outputs, over their largest magnitude
 
 #: Published peaks of the H100 SXM (NVIDIA's data sheet, at 700 W): memory
-#: bytes/s and float32 operations/s outside the tensor cores.  The bounds
-#: are stated for this card only.
-H100_SXM_PEAKS = (3.35e12, 67e12)
+#: bytes/s, float32 operations/s outside the tensor cores, and dense
+#: bfloat16 operations/s on the tensor cores.  The bounds are stated for
+#: this card only.
+H100_SXM_PEAKS = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12}
+#: Profiler windows `device_ms` tries before it gives up on a lost event.
+PROFILE_TRIES = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -106,6 +158,19 @@ def card_line() -> str:
         "nvidia-smi: no output"
 
 
+def host_cpu() -> str:
+    """The host CPU's model and vector extensions: the CPU side of the
+    card-vs-CPU checks runs on it, and its float32 results follow MKL's
+    code path for that CPU and torch's thread count."""
+    lines = pathlib.Path("/proc/cpuinfo").read_text().splitlines()
+    model = next((ln.split(":", 1)[1].strip() for ln in lines
+                  if ln.startswith("model name")), "model not reported")
+    flags = next((ln.split(":", 1)[1].split() for ln in lines
+                  if ln.startswith("flags")), [])
+    return " ".join([model] + [f for f in ("avx2", "avx512f", "amx_tile")
+                               if f in flags])
+
+
 def card_peaks(name: str):
     """The peaks the bounds use; another card's are not in this script."""
     check("H100" in name and "PCIe" not in name and "NVL" not in name,
@@ -119,21 +184,27 @@ def device_ms(fn, match: str | None = None, n: int = 60,
     """Median device time of one call of ``fn``: the durations of the CUDA
     activities a profiler trace records for each of ``n`` calls after a
     warm-up (only those whose name contains ``match``, when given).  Host
-    overhead between launches is excluded: this is the card's time."""
+    overhead between launches is excluded: this is the card's time.  The
+    profiler can drop an activity from a window (one of 60 once, torch
+    2.11 on an H100); such a window is measured again, up to
+    PROFILE_TRIES windows in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and (match is None or match in e.name)]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (match is None or match in e.name)]
+        if len(evs) >= n:
+            break
     check(len(evs) >= n, f"profiler saw {len(evs)} device activities for "
-          f"{n} calls")
+          f"{n} calls in each of {PROFILE_TRIES} windows")
     if len(evs) % n:                     # calls differ: report the mean
         return sum(e.device_time for e in evs) / n / 1e3
     k = len(evs) // n
@@ -207,11 +278,11 @@ def balance_inputs(gen, ties: bool, dev):
     return [eps.to(dev)] + [p[k].contiguous().to(dev) for k in PANELS]
 
 
-def bound_of(nbytes: int, nops: int, peaks):
+def bound_of(nbytes: int, nops: int, peaks, dtype: str = "float32"):
     """(least ms the card could take, "bytes" or "operations"): the larger
-    of the bytes over the memory rate and the operations over the float32
-    rate."""
-    t_bytes, t_ops = nbytes / peaks[0], nops / peaks[1]
+    of the bytes over the memory rate and the operations over the card's
+    peak rate for the operands' ``dtype``."""
+    t_bytes, t_ops = nbytes / peaks["bytes"], nops / peaks[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -968,6 +1039,493 @@ def phase_serve_reference(dev):
         f"{LOGIT_ATOL}, max |logit| {scale:.3f})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: bp_route; Phase 10: flash attention; Phase 11: the prefill path
+# at full width; Phase 12: the prefill path on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def bp_route_inputs(gen, ties: bool, dtype, dev):
+    """Q [N, C], edges [E, 2] without self-loops, cap [E] = 5 (bench_
+    kernels' draw); ``ties``: integer backlogs in [0, 3] with duplicated
+    column blocks, and link 0 between two equal rows (all-zero diff)."""
+    import torch
+    N, C, E = ROUTE_N, ROUTE_C, ROUTE_E
+    if ties:
+        Q = torch.randint(0, 4, (N, C // 3), generator=gen).float().repeat(
+            1, 3)
+        Q[1] = Q[0]
+    else:
+        Q = torch.rand((N, C), generator=gen) * 100
+    m = torch.randint(0, N, (E,), generator=gen)
+    l = (m + 1 + torch.randint(0, N - 1, (E,), generator=gen)) % N
+    if ties:
+        m[0], l[0] = 0, 1
+    return (Q.to(dtype).to(dev), torch.stack([m, l], 1).to(dev),
+            torch.full((E,), 5.0, device=dev))
+
+
+def phase_route(dev, peaks):
+    """bp_route bit for bit against its plain version, then once through
+    its entry point `bp_route_op` with the launch count read around it (no
+    model or engine path calls this kernel: the op is its path, as in
+    benchmarks/bench_kernels.py); device times at bench_kernels' shape."""
+    import torch
+    from repro_torch.kernels.bp_route import kernel as K
+    from repro_torch.kernels.bp_route.ops import bp_route_op
+    from repro_torch.kernels.bp_route.ref import bp_route_ref
+    gen = torch.Generator().manual_seed(3)
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for ties in (False, True):
+            Q, edges, cap = bp_route_inputs(gen, ties, dtype, dev)
+            qm, ql = Q[edges[:, 0]], Q[edges[:, 1]]
+            got = K.bp_route_decide(qm, ql, cap)
+            want = bp_route_ref(qm, ql, cap)
+            torch.cuda.synchronize()
+            check(all(bits_equal(a, b) for a, b in zip(got, want)),
+                  f"bp_route differs from its plain version ({dtype}, "
+                  f"ties={ties})")
+            if ties:
+                check(int(got[0][0]) == 0 and float(got[1][0]) == 0.0 and
+                      int(got[2][0]) == -1, "a zero row must pick class 0 "
+                      "with no rate and direction -1")
+            errs += list(zip(got, want))
+    Q, edges, cap = bp_route_inputs(gen, False, torch.float32, dev)
+    K.bp_route_decide.launches = 0
+    cls, rate, dirn = bp_route_op(Q, edges, cap)
+    torch.cuda.synchronize()
+    launches = K.bp_route_decide.launches
+    check(launches == 1, f"bp_route_op launched the kernel {launches} times")
+    check(bool((rate == 5.0).all()), "random backlogs: every link moves")
+    qm, ql = Q[edges[:, 0]], Q[edges[:, 1]]
+    E, C = qm.shape
+    row = dict(
+        name="bp_route_decide", route="cuda",
+        source="src/repro_torch/kernels/bp_route/csrc/bp_route.cu",
+        replaces="src/repro/kernels/bp_route/kernel.py:31",
+        launches=launches, max_abs_err=max_abs_err(errs),
+        ms=device_ms(lambda: K.bp_route_decide(qm, ql, cap),
+                     match="bp_route_kernel"),
+        wall_ms=wall_ms(lambda: K.bp_route_decide(qm, ql, cap)),
+        plain_ms=device_ms(lambda: bp_route_ref(qm, ql, cap)),
+        library_ms=None, bytes=2 * 4 * E * C + 4 * E + 12 * E,
+        ops=3 * E * C)
+    row["bound_ms"], row["bound_by"] = bound_of(row["bytes"], row["ops"],
+                                                peaks)
+    log(f"kernel bp_route_decide at E={E}, C={C} (N={ROUTE_N}): "
+        f"{row['ms']:.6f} ms on the card ({row['wall_ms']:.6f} ms between "
+        f"host events; plain {row['plain_ms']:.6f} ms on the card), bound "
+        f"{row['bound_ms'] * 1e3:.4f} us by {row['bound_by']} "
+        f"({row['bytes']} B, {row['ops']} ops); bit-identical on 4 cases; "
+        f"bp_route_op launched it once; library: no single PyTorch call")
+    return row
+
+
+def flash_inputs(gen, B, H, KH, S, D, dtype, dev):
+    import torch
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D)))
+
+
+def flash_rows_ref(q, k, v, r0: int, rows: int):
+    """Query rows r0 .. r0 + rows - 1 of causal attention, computed plainly
+    in float32 over the keys they see (the plain version's scores do not
+    fit at the prefill length)."""
+    import torch
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    r1 = r0 + rows
+    qt = q[:, :, r0:r1].float()
+    kk = k[:, :, :r1].repeat_interleave(G, dim=1).float()
+    s = torch.einsum("bhsd,bhtd->bhst", qt, kk) / math.sqrt(D)
+    qi = torch.arange(r0, r1, device=q.device)[:, None]
+    s = s.masked_fill(torch.arange(r1, device=q.device)[None, :] > qi, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p,
+                        v[:, :, :r1].repeat_interleave(G, dim=1).float())
+
+
+def within(out, ref, atol: float, rtol: float) -> bool:
+    """assert_allclose's rule: |out - ref| <= atol + rtol |ref|."""
+    return bool(((out.float() - ref.float()).abs()
+                 <= atol + rtol * ref.float().abs()).all())
+
+
+def flash_windows(S: int):
+    """FLASH_WINDOWS and FLASH_RANDOM_WINDOWS 64-row windows at random
+    starts (seed 5): (first row, rows) pairs."""
+    import numpy as np
+    starts = np.random.default_rng(5).integers(0, S - 64,
+                                               FLASH_RANDOM_WINDOWS)
+    return FLASH_WINDOWS + tuple((int(r), 64) for r in starts)
+
+
+def phase_flash(dev, peaks):
+    """flash_attention against its plain version on FLASH_CASES in float32
+    and bfloat16 (bfloat16 outputs also against the plain version's float32
+    result, within FLASH_BF16_ROUNDING); at granite's prefill shape, the
+    rows of `flash_windows` against a plain computation under the same
+    rule, then device times of the kernel, the plain version (at
+    FLASH_PLAIN_S) and SDPA (the library column, timed only) beside the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    atol, rtol = FLASH_BF16_ROUNDING
+    errs, worst = [], {}
+    for B, H, KH, S, D, causal, window in FLASH_CASES:
+        for name, tol in FLASH_TOL.items():
+            dtype = getattr(torch, name)
+            q, k, v = flash_inputs(gen, B, H, KH, S, D, dtype, dev)
+            out = K.flash_attention(q, k, v, causal=causal, window=window)
+            ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = max_abs_err([(out, ref)])
+            check(out.dtype == dtype and within(out, ref, tol, tol),
+                  f"flash_attention differs from its plain version at "
+                  f"{(B, H, KH, S, D, causal, window)} {name}: max abs "
+                  f"{err:.3e} (tolerance {tol})")
+            if dtype == torch.bfloat16:
+                ref32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                            causal=causal, window=window)
+                check(within(out, ref32, atol, rtol),
+                      f"flash_attention at {(B, H, KH, S, D, causal, window)}"
+                      f" bf16: off the float32 plain result by more than "
+                      f"bf16 rounding ({max_abs_err([(out, ref32)]):.3e})")
+            errs.append((out, ref))
+            worst[f"S={S},D={D},{name}"] = err
+    log("flash cases, max abs error against the plain version: " +
+        json.dumps({k: f"{v:.3e}" for k, v in worst.items()}))
+
+    B, H, KH, D = PREFILL_B, 16, 8, 64                 # granite's heads
+    S = PREFILL_S
+    q, k, v = flash_inputs(gen, B, H, KH, S, D, torch.bfloat16, dev)
+    out = K.flash_attention(q, k, v)
+    windows = flash_windows(S)
+    rows_err, rows_use = 0.0, 0.0
+    for r0, n in windows:
+        got, ref = out[:, :, r0:r0 + n].float(), flash_rows_ref(q, k, v, r0, n)
+        err = (got - ref).abs()
+        rows_err = max(rows_err, float(err.max()))
+        rows_use = max(rows_use, float((err / (atol + rtol * ref.abs()))
+                                       .max()))
+        check(within(got, ref, atol, rtol),
+              f"flash_attention at S={S}: rows {r0}..{r0 + n - 1} differ "
+              f"from the plain computation by {float(err.max()):.3e}, more "
+              f"than bf16 rounding ({atol} + {rtol} |ref|)")
+    ms = device_ms(lambda: K.flash_attention(q, k, v),
+                   match="flash_attention_kernel", n=3, warm=1)
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), n=3, warm=1)
+    q4, k4, v4 = (t[:, :, :FLASH_PLAIN_S] for t in (q, k, v))
+    ms4 = device_ms(lambda: K.flash_attention(q4, k4, v4),
+                    match="flash_attention_kernel", n=5, warm=1)
+    plain4 = device_ms(lambda: flash_attention_ref(q4, k4, v4), n=5, warm=1)
+    nops = 4 * B * H * D * S * (S + 1) // 2      # causal pairs, 2 dots each
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KH * S * D)
+    row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:74",
+        max_abs_err=max_abs_err(errs), ms=ms, plain_ms=plain4,
+        plain_S=FLASH_PLAIN_S, ms_at_plain_S=ms4,
+        library_ms=lib_ms, bytes=nbytes, ops=nops)
+    # The operands are bf16: both products at the tensor cores' bf16 rate
+    # (QK^T of bf16 operands is exact in float32 accumulation; P.V at that
+    # rate takes P in bf16, as SDPA does), the least the card could take.
+    row["bound_ms"], row["bound_by"] = bound_of(nbytes, nops, peaks,
+                                                "bfloat16")
+    log(f"kernel flash_attention at B={B}, H={H}, KH={KH}, S={S}, D={D}, "
+        f"bf16, causal: {ms:.4f} ms on the card ({nops / ms / 1e9:.2f} "
+        f"TFLOP/s), bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"({nops} flops at the bf16 tensor-core rate, {nbytes} B); SDPA "
+        f"(library, is_causal, enable_gqa) {lib_ms:.4f} ms; {len(windows)} "
+        f"row windows ({sum(n for _, n in windows)} rows, first rows "
+        f"{[r for r, _ in windows]}) within {rows_err:.3e} of a plain "
+        f"computation, at most {rows_use:.3f} of the bf16 rounding gate.  "
+        f"At S={FLASH_PLAIN_S} (plain_S): kernel {ms4:.4f} ms "
+        f"(ms_at_plain_S), plain version {plain4:.4f} ms (plain_ms; its "
+        f"scores do not fit at S={S})")
+    return row
+
+
+def phase_prefill(dev):
+    """granite-moe-1b-a400m at full width through `make_prefill_step` at
+    B=PREFILL_B, S=PREFILL_S, bfloat16 activations: a warm-up at a short
+    S, 2 timed prefills with the launch counters read around them, then
+    one profiled prefill through `ModelAPI.logits` (the function the step
+    wraps), which also returns the new router queues."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.kernels.bp_topk import kernel as TK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import get_model
+    from repro_torch.runtime.step import make_prefill_step
+    t0 = time.perf_counter()
+    cfg, params = serve_model(dev)
+    api = get_model(cfg)
+    rcfg = RunConfig(cfg, SHAPES["prefill_32k"])
+    check(rcfg.activ_dtype == "bfloat16", "the run's default activations")
+    step = make_prefill_step(rcfg)
+    H = api.init_state(device=dev).router_H
+    rng = np.random.default_rng(0)
+    warm = torch.as_tensor(rng.integers(0, cfg.vocab, (PREFILL_B,
+                                                       PREFILL_WARM_S)),
+                           device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (PREFILL_B,
+                                                       PREFILL_S)),
+                           device=dev)
+    step(params, {"tokens": warm}, H)
+    torch.cuda.synchronize()
+    log(f"prefill: {cfg.name} full width ({cfg.n_layers} layers), weights "
+        f"and a warm-up at S={PREFILL_WARM_S} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention.launches = 0
+    TK.bp_topk.launches = 0
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = step(params, {"tokens": toks}, H)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    launches = {"flash_attention": FK.flash_attention.launches,
+                "bp_topk": TK.bp_topk.launches}
+    check(launches == {"flash_attention": 2 * cfg.n_layers,
+                       "bp_topk": 2 * cfg.n_layers},
+          f"launches {launches} in 2 prefills, expected {cfg.n_layers} of "
+          f"each per prefill")
+    check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab) and
+          logits.dtype == torch.bfloat16 and
+          bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)} {logits.dtype} not finite "
+          f"or misshapen")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            again, H_new, _ = api.logits(params, {"tokens": toks},
+                                         activ_dtype=torch.bfloat16,
+                                         remat="none", router_H=H,
+                                         last_only=True)
+        torch.cuda.synchronize()
+    check(tuple(H_new.shape) == (cfg.n_layers, cfg.n_experts) and
+          bool(torch.isfinite(H_new).all()) and bool((H_new >= 0).all()),
+          "the new router queues must be finite and >= 0")
+    med = statistics.median(walls)
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if evs:
+        dev_ms = sum(e.device_time for e in evs) / 1e3
+        kinds = {}
+        for e in evs:
+            kinds[e.name] = kinds.get(e.name, 0) + e.device_time / 1e3
+        top = sorted(kinds.items(), key=lambda kv: -kv[1])[:6]
+        busy = (f"{len(evs)} CUDA device activities, {dev_ms:.4f} ms of "
+                f"device time, busy {dev_ms / med:.4f} of the unprofiled "
+                f"prefill's {med:.4f} ms; most time: " + "; ".join(
+                    f"{n[:50]} {t:.4f} ms" for n, t in top))
+    else:
+        busy = "device-busy share not measured (no device activity traced)"
+    log(f"prefill: B={PREFILL_B}, S={PREFILL_S}, bf16 activations, 2 "
+        f"prefills {', '.join(f'{w:.4f}' for w in walls)} ms: {med:.4f} ms "
+        f"per prefill, {PREFILL_B * PREFILL_S / med * 1e3:.2f} prefill "
+        f"tokens/s; launches {launches}; peak device memory {peak:.2f} GiB; "
+        f"profiled prefill: {busy}; its logits within "
+        f"{max_abs_err([(again, logits)]):.3e} of the step's; new router "
+        f"queues sum {float(H_new.sum()):.1f}, max {float(H_new.max()):.1f}, "
+        f"{int((H_new > 0).sum())} of {H_new.numel()} positive")
+    return launches
+
+
+def recorded_sel(rec, cfg):
+    """(picks [T, k], float64 sel [T, E]) of one recorded routing call
+    (idx, x_flat, router weights, H): sel = softmax(x W) - H / C_e, the
+    gate's selection score, recomputed on the CPU from the call's own
+    float32 inputs."""
+    import torch
+    idx, x, w, h = (t.cpu() for t in rec)
+    G, Tg, _ = x.shape
+    cap = max(G * Tg * cfg.top_k / cfg.n_experts, 1.0)
+    sel = torch.softmax(x.double() @ w.double(), -1) - h.double() / cap
+    return idx.reshape(-1, cfg.top_k), sel.reshape(-1, cfg.n_experts)
+
+
+def compare_routes(rec_dev, rec_cpu, cfg):
+    """Rows whose picks differ between the card and the CPU, and whether
+    each is a near-tie that the two devices' inputs explain: its smallest
+    gap between adjacent sel values among the CPU's top k+1 is at most
+    2 delta + NEAR_TIE_SLACK, delta the largest difference of any sel
+    between the two devices in this call (two values cannot trade places
+    unless their gap is below the sum of their changes).  Returns (rows,
+    margins, delta, all explained)."""
+    import torch
+    i_d, s_d = recorded_sel(rec_dev, cfg)
+    i_c, s_c = recorded_sel(rec_cpu, cfg)
+    delta = float((s_d - s_c).abs().max())
+    rows = (i_d != i_c).any(-1).nonzero()[:, 0]
+    top = torch.sort(s_c[rows], -1, descending=True).values[:, :cfg.top_k + 1]
+    margins = (top[:, :-1] - top[:, 1:]).min(-1).values
+    ok = bool((margins <= 2 * delta + NEAR_TIE_SLACK).all())
+    return rows, margins, delta, ok
+
+
+def phase_prefill_reference(dev):
+    """The prefill path on the card (flash attention, bp_topk) against the
+    port's plain path on the CPU (sdpa, bp_topk's plain version), at full
+    width and REF_LAYERS layers, B=PREFILL_REF_B, S=PREFILL_REF_S, float32,
+    from the same weights and tokens.
+
+    Teacher-forced, gated: layer by layer, both devices run `block_fwd`
+    on the CPU's hidden state.  Every token picks the same experts on both,
+    except a near-tie that the two devices' router inputs explain
+    (`compare_routes`), which is counted and printed; every other token's
+    output agrees within LAYER_RTOL of the layer's largest |output| (at
+    these random weights the expert sums reach ~1e2, and float32 rounding
+    of them is ~1e-6 of that); the new router queues are equal where
+    no pick differs; and the logits of the CPU's final hidden state agree
+    within LOGIT_ATOL (see phase_serve_ref for why 1e-4 catches a lost
+    float32).
+
+    Free-running, through the entry points (`ModelAPI.logits` and
+    `make_prefill_step`): when no pick differs in any layer, the new
+    router queues must be equal and the full and last-position logits
+    within LOGIT_ATOL; a differing pick must be an explained near-tie, and
+    then the logits, which the other expert changes for that token and,
+    through attention, for the later ones, are reported only.  The card's
+    forward, run again, must repeat bit for bit.  Why near-ties flip on
+    one host and not another (`scripts/torch_prefill_repeat.py`): the card
+    repeats itself bit for bit, also across processes, but the CPU's
+    float32 results move with torch's thread count and MKL's code path,
+    and these inputs hold gate scores 3e-8 to 3e-7 apart, less than the
+    two devices' score difference."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.models import get_model, moe
+    from repro_torch.models.common import embed, norm, unembed
+    from repro_torch.models.transformer import block_fwd, layer
+    from repro_torch.runtime.step import make_prefill_step
+    t0 = time.perf_counter()
+    cfg, params = serve_model(dev, n_layers=REF_LAYERS, seed=2)
+    cpu = torch.device("cpu")
+    params_cpu = to_device_tree(params, cpu)
+    api = get_model(cfg)
+    step = make_prefill_step(RunConfig(cfg, SHAPES["prefill_32k"],
+                                       activ_dtype="float32"))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (PREFILL_REF_B,
+                                                            PREFILL_REF_S))
+    f32 = torch.float32
+    routed = []
+    original = moe._route
+
+    def recording_route(cfg_, p, x_flat, rs, *, use_kernel=False):
+        out = original(cfg_, p, x_flat, rs, use_kernel=use_kernel)
+        routed.append((out[0], x_flat, p["router"], rs.H))
+        return out
+
+    def run(fn, *args, **kw):
+        routed.clear()
+        out = fn(*args, **kw)
+        return out, list(routed)
+
+    moe._route = recording_route
+    try:
+        # teacher-forced
+        H0 = api.init_state(device=cpu).router_H
+        x = embed(cfg, params_cpu["embed"], torch.as_tensor(toks), f32)
+        pos = torch.arange(PREFILL_REF_S)[None].expand(PREFILL_REF_B, -1)
+        near, worst = [], 0.0
+        for i in range(cfg.n_layers):
+            (yc, Hc, _), rc = run(block_fwd, cfg, layer(
+                params_cpu["stack"]["layers"], i), x, pos,
+                window=cfg.window, router_H=H0[i])
+            (yd, Hd, _), rd = run(block_fwd, cfg, layer(
+                params["stack"]["layers"], i), x.to(dev), pos.to(dev),
+                window=cfg.window, router_H=H0[i].to(dev))
+            rows, margins, delta, ok = compare_routes(rd[0], rc[0], cfg)
+            check(ok, f"prefill reference, teacher-forced layer {i}: "
+                  f"{len(rows)} tokens pick other experts on the card, "
+                  f"margins {margins.tolist()} against 2 x {delta:.3e}")
+            near += [(i, int(r), float(m), delta)
+                     for r, m in zip(rows, margins)]
+            keep = torch.ones(PREFILL_REF_B * PREFILL_REF_S, dtype=bool)
+            keep[rows] = False
+            scale = float(yc.abs().max())
+            d = max_abs_err([(yd.cpu().reshape(-1, cfg.d_model)[keep],
+                              yc.reshape(-1, cfg.d_model)[keep])]) / scale
+            check(d <= LAYER_RTOL, f"prefill reference, teacher-forced "
+                  f"layer {i}: outputs differ by {d:.3e} of their largest "
+                  f"magnitude {scale:.3f}")
+            check(len(rows) > 0 or torch.equal(Hd.cpu(), Hc),
+                  f"layer {i}: router queues differ with equal picks")
+            worst = max(worst, d)
+            x = yc
+        lc = unembed(cfg, params_cpu["embed"], norm(
+            cfg, x, params_cpu.get("ln_f")))
+        xd = x.to(dev)
+        ld = unembed(cfg, params["embed"], norm(cfg, xd, params.get("ln_f")))
+        d_tf = max_abs_err([(ld.cpu(), lc)])
+        check(d_tf <= LOGIT_ATOL, f"prefill reference, teacher-forced: "
+              f"logits differ by {d_tf:.3e}")
+        # free-running, through the entry points
+        out, recs = {}, {}
+        for d, p in ((dev, params), (cpu, params_cpu)):
+            batch = {"tokens": torch.as_tensor(toks, device=d)}
+            H0d = api.init_state(device=d).router_H
+            (full, H, _), r1 = run(api.logits, p, batch, activ_dtype=f32,
+                                   router_H=H0d)
+            last, r2 = run(step, p, batch, H0d)
+            out[d] = (full.cpu(), H.cpu(), last.cpu())
+            recs[d] = r1 + r2
+    finally:
+        moe._route = original
+    again, H_again, _ = api.logits(
+        params, {"tokens": torch.as_tensor(toks, device=dev)},
+        activ_dtype=f32, router_H=api.init_state(device=dev).router_H)
+    check(bits_equal(again.cpu(), out[dev][0]) and
+          bits_equal(H_again.cpu(), out[dev][1]),
+          "prefill reference: the card's forward does not repeat bit for bit")
+    check(len(recs[dev]) == len(recs[cpu]) == 2 * cfg.n_layers,
+          f"{len(recs[dev])}/{len(recs[cpu])} routing calls")
+    flips = []
+    for i, (a, b) in enumerate(zip(recs[dev], recs[cpu])):
+        rows, margins, delta, ok = compare_routes(a, b, cfg)
+        check(ok, f"prefill reference, free-running call {i // cfg.n_layers}"
+              f" layer {i % cfg.n_layers}: {len(rows)} tokens pick other "
+              f"experts, margins {margins.tolist()} against 2 x "
+              f"{delta:.3e}")
+        flips += [(i // cfg.n_layers, i % cfg.n_layers, int(r), float(m),
+                   delta) for r, m in zip(rows, margins)]
+    (fa, Ha, la), (fb, Hb, lb) = out[dev], out[cpu]
+    d_full, d_last = max_abs_err([(fa, fb)]), max_abs_err([(la, lb)])
+    if not flips:
+        check(torch.equal(Ha, Hb), f"router queues differ by "
+              f"{float((Ha - Hb).abs().max())}")
+        check(d_full <= LOGIT_ATOL and d_last <= LOGIT_ATOL,
+              f"prefill reference: logits differ by {d_full:.3e} (full), "
+              f"{d_last:.3e} (last position) > {LOGIT_ATOL}")
+    log(f"prefill reference: {cfg.name} full width at {REF_LAYERS} layers, "
+        f"B={PREFILL_REF_B}, S={PREFILL_REF_S}, float32, card vs CPU "
+        f"({time.perf_counter() - t0:.1f} s).  Teacher-forced: outputs "
+        f"within {worst:.3e} of each layer's largest |output| (gate "
+        f"{LAYER_RTOL}), logits within {d_tf:.3e} (gate {LOGIT_ATOL}); "
+        f"{len(near)} near-tie picks (layer, token, margin, delta) "
+        f"{near[:8]}.  Free-running: {len(flips)} near-tie picks (call, "
+        f"layer, token, margin, delta) {flips[:8]}; the card's forward "
+        f"repeats bit for bit; router queues "
+        f"{'equal' if torch.equal(Ha, Hb) else 'differ'}; logits within "
+        f"{d_full:.3e} (full) and {d_last:.3e} (last position)"
+        + ("" if flips else " (gated)") +
+        f"; max |logit| {float(fb.abs().max()):.3f}")
+
+
 def to_device_tree(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device_tree(v, dev) for k, v in tree.items()}
@@ -995,8 +1553,10 @@ def main() -> int:
     card = card_line()
     peaks = card_peaks(name)
     log(f"device: {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}; bounds use the H100 SXM peaks "
-        f"{peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32")
+        f"{torch.version.cuda}; host CPU {host_cpu()}, "
+        f"{torch.get_num_threads()} torch threads; bounds use the H100 SXM "
+        f"peaks {peaks['bytes'] / 1e12:.2f} TB/s, {peaks['float32'] / 1e12:.0f} "
+        f"TFLOP/s f32, {peaks['bfloat16'] / 1e12:.0f} TFLOP/s bf16")
 
     # Router logits feed a top-k: a TF32 matmul would flip selections.
     check(torch.get_float32_matmul_precision() == "highest" and
@@ -1009,6 +1569,8 @@ def main() -> int:
         f"{secs:.2f} s")
 
     rows = phase_kernels(dev, peaks)
+    rows["bp_route_decide"] = phase_route(dev, peaks)
+    rows["flash_attention"] = phase_flash(dev, peaks)
     res, jobs, launches, wall = phase_main(dev)
     phase_profile(dev, wall / res.slot_steps * 1e3)
     phase_reference(dev)
@@ -1017,13 +1579,20 @@ def main() -> int:
     phase_router(dev)
     launches["bp_topk"] = phase_serve(dev)
     phase_serve_reference(dev)
+    launches["flash_attention"] = phase_prefill(dev)["flash_attention"]
+    phase_prefill_reference(dev)
+    launches["bp_route_decide"] = rows["bp_route_decide"]["launches"]
     for k, r in rows.items():
         r["launches"] = launches[k]
+        check(r["launches"] > 0, f"{k}: no launch on its path")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    table = {"kernels": [{k: r[k] for k in keys} for r in rows.values()]}
+    # A plain version timed at another shape than the kernel says which.
+    shape = ("plain_S", "ms_at_plain_S")
+    table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
+                         for r in rows.values()]}
     for r in table["kernels"]:
         for k in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             check(math.isfinite(r[k]), f"{r['name']}: {k} not finite")

@@ -5,7 +5,7 @@ MoE decoder-only transformers); the JAX package's other architectures
 follow with their families (ROADMAP A13).
 """
 from . import granite_moe_1b_a400m, moonshot_v1_16b_a3b, qwen2_05b
-from .base import ModelConfig, reduced
+from .base import SHAPES, ModelConfig, RunConfig, ShapeConfig, reduced
 
 _MODULES = (qwen2_05b, moonshot_v1_16b_a3b, granite_moe_1b_a400m)
 
@@ -19,4 +19,5 @@ def get_config(arch: str) -> ModelConfig:
     return ARCHS[arch]
 
 
-__all__ = ["ModelConfig", "ARCHS", "get_config", "reduced"]
+__all__ = ["ModelConfig", "RunConfig", "ShapeConfig", "SHAPES", "ARCHS",
+           "get_config", "reduced"]

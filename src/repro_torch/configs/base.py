@@ -1,8 +1,11 @@
-"""Model configuration: `ModelConfig` and `reduced`.
+"""Model, shape and run configuration: `ModelConfig`, `ShapeConfig`,
+`SHAPES`, `RunConfig` and `reduced`.
 
 A copy of `repro.configs.base` for the families the port runs (the port
-imports nothing of `repro`).  `ShapeConfig` and `RunConfig` are not copied:
-nothing on the ported serving path reads them.
+imports nothing of `repro`), fields and defaults unchanged.  Of
+`RunConfig`'s knobs the port's step builders read `model` and
+`activ_dtype`; the sharding, remat and attention-impl knobs have nothing
+to choose on one device.
 """
 from __future__ import annotations
 
@@ -51,6 +54,47 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str                      # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Distribution + performance knobs (hillclimb surface)."""
+    model: ModelConfig
+    shape: ShapeConfig
+    multi_pod: bool = False
+    # sharding strategy
+    fsdp: bool = True              # shard params/opt over 'data' (else pure DP)
+    seq_shard_decode: bool = True  # shard KV cache / state over 'data' at decode
+    kv_seq_tp: str = "off"         # off | auto: cache seq over 'model' when
+                                   # kv_heads don't divide the model axis
+    expert_parallel: bool = True   # shard experts over 'model' (else replicate)
+    # memory / remat
+    remat: str = "full"            # full | dots | none
+    scan_layers: bool = True
+    attn_impl: str = "naive"       # naive (materialized) | chunked (online-softmax)
+    ctx_par: bool = False          # context-parallel attention (q-seq over model)
+    # numerics
+    activ_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    # optimizer
+    grad_accum: int = 1
+    grad_compression: str = "none" # none | int8_ef | topk_ef
 
 
 def reduced(model: ModelConfig, **overrides) -> ModelConfig:

@@ -1,5 +1,6 @@
-"""LLM substrate of the port: dense and MoE decoder-only transformers,
-decode path (`transformer.lm_decode_step`) through the uniform `ModelAPI`."""
+"""LLM substrate of the port: dense and MoE decoder-only transformers, the
+prefill forward (`transformer.lm_logits`) and the decode path
+(`transformer.lm_decode_step`) through the uniform `ModelAPI`."""
 from .api import ModelAPI, get_model
 from .common import Annotated, Init, split_tree
 

@@ -5,6 +5,7 @@ decoder-only transformers):
 
   api = get_model(cfg)
   params~ = api.init(gen, dtype)                    # Annotated tree
+  logits, H', aux = api.logits(params, batch, ...)  # prefill forward
   caches = api.init_decode(batch, max_len, dtype, device)
   logits, caches = api.decode_step(params, caches, batch, ...)
 
@@ -31,6 +32,12 @@ class ModelAPI:
 
     def init_state(self, device=None):
         return transformer.init_model_state(self.cfg, device=device)
+
+    def logits(self, params, batch, *, activ_dtype=torch.bfloat16,
+               remat="none", router_H=None, last_only=False):
+        return self.mod.lm_logits(self.cfg, params, batch["tokens"],
+                                  activ_dtype=activ_dtype, remat=remat,
+                                  router_H=router_H, last_only=last_only)
 
     def init_decode(self, batch: int, max_len: int, dtype, device=None):
         return self.mod.init_decode_caches(self.cfg, batch, max_len, dtype,

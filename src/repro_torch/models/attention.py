@@ -1,11 +1,11 @@
-"""GQA attention with RoPE and a ring-buffer KV cache: the decode path.
+"""GQA attention with RoPE: the prefill forward and the decode path.
 
-Port of the decode half of `repro.models.attention`: `KVCache`,
-`init_attn`, `_project_qkv`, `_mask`, `sdpa` (the einsum reference path,
-scores in float32 with -1e30 on masked keys), `init_cache` and
-`decode_attention`.  The prefill/training forms (`sdpa_chunked`,
-`sdpa_banded`, `attention`, cross-attention, `prefill_cache`) wait for the
-training slice (ROADMAP A13).
+Port of `repro.models.attention`: `KVCache`, `init_attn`, `_project_qkv`,
+`_mask`, `sdpa` (the einsum reference path, scores in float32 with -1e30
+on masked keys), `attention` (the train/prefill self-attention),
+`init_cache` and `decode_attention`.  The reference's other prefill forms
+(`sdpa_chunked`, `sdpa_banded`), cross-attention and `prefill_cache` wait
+for later slices (ROADMAP A13).
 
 Unlike the reference's pure functions, `decode_attention` writes the new
 key, value and position into the cache's tensors in place (the port's
@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels.flash_attention.ops import flash_attention_op
 from .common import Init, apply_rope
 
 
@@ -91,6 +92,31 @@ def sdpa(q, k, v, mask) -> torch.Tensor:
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
     return out.reshape(B, S, H, D)
+
+
+def attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
+              window: Optional[int] = None,
+              causal: bool = True) -> torch.Tensor:
+    """Full (train/prefill) self-attention: x [B, S, d] -> [B, S, d].
+
+    The core is chosen by the device.  On CUDA it is `flash_attention_op`
+    (the hand-written kernel), given the [B, S, H, D] projections as their
+    [B, H, S, D] ``transpose(1, 2)`` views (the kernel reads strides, so
+    nothing is copied) and masking by index.  On the CPU it is `sdpa` with
+    `_mask` over ``positions``: the reference's "naive" impl.  The two
+    agree because every caller passes positions = arange(S) (`lm_logits`),
+    so position and index coincide.  The reference's sharding constraints
+    and context parallelism do not apply on one device."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    if x.device.type == "cuda":
+        out = flash_attention_op(
+            *(t.contiguous().transpose(1, 2) for t in (q, k, v)),
+            causal=causal, window=window).transpose(1, 2)
+    else:
+        pos = positions if positions.dim() == 2 else positions[None, :]
+        pos = pos.expand(x.shape[:2])
+        out = sdpa(q, k, v, _mask(pos, pos, causal=causal, window=window))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, *,

@@ -1,16 +1,17 @@
-"""Decoder-only transformer stack (dense and MoE): init and decode.
+"""Decoder-only transformer stack (dense and MoE): init, the prefill
+forward and decode.
 
-Port of the decode half of `repro.models.transformer` for stacks without
-the local/global pattern.  Layer params are stacked ([L, ...] leading
-dims) as in the reference; its `layer_scan` over the stack becomes a
-Python loop over the layers.  The training and prefill forwards
-(`block_fwd`, `stack_fwd`, `lm_logits`, `lm_loss`) and the local/global
-pattern wait for later slices (ROADMAP A13).
+Port of `repro.models.transformer` for stacks without the local/global
+pattern.  Layer params are stacked ([L, ...] leading dims) as in the
+reference; its `layer_scan` over the stack becomes a Python loop over the
+layers.  `lm_loss` waits for the training slice, and the local/global
+pattern for its families (ROADMAP A13).
 
-Decode routes every MoE layer through the fused `bp_topk` gate (the CUDA
-kernel on the card).  As in the reference, `lm_decode_step` takes per-layer
-router queues H and drops each layer's updated H: at decode the caller's H
-is the bias.
+Every MoE layer routes through the fused `bp_topk` gate (the CUDA kernel
+on the card), at decode and at prefill.  The prefill forward
+(`lm_logits`) threads the per-layer router queues H through the stack and
+returns each layer's new H, as the reference does; `lm_decode_step`, like
+the reference, drops them: at decode the caller's H is the bias.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.router import RouterState
-from .attention import KVCache, decode_attention, init_attn, init_cache
+from .attention import (KVCache, attention, decode_attention, init_attn,
+                        init_cache)
 from .common import (Init, embed, init_embedding, init_mlp, init_norm, norm,
                      swiglu, unembed)
 from .moe import init_moe, moe_ffn
@@ -54,6 +56,26 @@ def init_block(cfg, ini: Init, *, moe: bool) -> dict:
     return {k: v for k, v in p.items() if v is not None}
 
 
+def block_fwd(cfg, p: dict, x, positions, *, window, router_H=None,
+              causal: bool = True):
+    """x [B, S, d] -> (x', router_H', aux).  The MoE FFN runs its capacity
+    path with one group per sequence (G = B) and routes through
+    `bp_topk`."""
+    h = norm(cfg, x, p.get("ln1"))
+    h = attention(cfg, p["attn"], h, positions, window=window, causal=causal)
+    x = x + h
+    h = norm(cfg, x, p.get("ln2"))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in p:
+        rs = RouterState(H=router_H, steps=torch.zeros(
+            (), dtype=torch.int32, device=x.device))
+        h, rs_new, aux = moe_ffn(cfg, p["moe"], h, rs, use_kernel=True)
+        router_H = rs_new.H
+    else:
+        h = swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
+    return x + h, router_H, aux
+
+
 def block_decode(cfg, p: dict, x, cache: KVCache, *, window, router_H=None):
     """One token through one block: (x [B, 1, d], cache) -> (x', cache,
     router_H').  The MoE routing goes through `bp_topk`."""
@@ -80,6 +102,28 @@ def init_stack(cfg, ini: Init) -> dict:
     _check_family(cfg)
     return {"layers": init_block(cfg, ini.stacked(cfg.n_layers),
                                  moe=cfg.family == "moe")}
+
+
+def stack_fwd(cfg, p: dict, x, positions, *, remat: str = "full",
+              router_H=None):
+    """Run all blocks in order; returns (x, router_H' [L, E] or None,
+    aux_total).  ``remat`` is accepted for the reference's signature and
+    ignored: the prefill runs without gradients."""
+    del remat
+    _check_family(cfg)
+    moe = cfg.family == "moe"
+    if moe and router_H is None:
+        raise ValueError(f"{cfg.name}: an MoE stack needs router_H [L, E]")
+    stack = p["layers"]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    H_out = []
+    for i in range(cfg.n_layers):
+        x, H, aux = block_fwd(cfg, layer(stack, i), x, positions,
+                              window=cfg.window,
+                              router_H=router_H[i] if moe else None)
+        aux_total = aux_total + aux
+        H_out.append(H)
+    return x, (torch.stack(H_out) if moe else router_H), aux_total
 
 
 def init_model_state(cfg, device=None) -> ModelState:
@@ -112,6 +156,24 @@ def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
         "stack": init_stack(cfg, ini),
         "ln_f": init_norm(cfg, ini, cfg.d_model),
     }
+
+
+def lm_logits(cfg, params, tokens, *, activ_dtype=torch.bfloat16,
+              remat="full", router_H=None, last_only=False):
+    """tokens [B, S] -> (logits [B, S, V], router_H', aux).
+    ``last_only`` unembeds only the final position (serving prefill).
+    Positions are arange over the sequence, as in the reference.  The
+    reference's ``prefix_embeds`` serves the VLM family, which is not
+    ported."""
+    x = embed(cfg, params["embed"], tokens, activ_dtype)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    x, H_out, aux = stack_fwd(cfg, params["stack"], x, positions,
+                              remat=remat, router_H=router_H)
+    x = norm(cfg, x, params.get("ln_f"))
+    if last_only:
+        x = x[:, -1:]
+    return unembed(cfg, params["embed"], x), H_out, aux
 
 
 def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):
