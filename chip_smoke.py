@@ -11,7 +11,9 @@ all at once.  Phases, each of which raises (and the script exits non-zero)
 on failure:
 
   1. device and build: the card, torch and CUDA versions, full-float32
-     matmuls (no TF32), kernel build time;
+     matmuls (no TF32), kernel build time; ptxas's registers and spills for
+     the flash sources, and the sm90 flash kernel's SASS, which must hold
+     HGMMA (wgmma) instructions;
   2. each kernel against its plain PyTorch version on the card, random and
      tie-heavy inputs, outputs bit-identical, device times beside each
      kernel's bound: bp_slot at the fleet path's shapes (B=1512 sims, N=16,
@@ -43,23 +45,35 @@ on failure:
      and bfloat16, and once through its entry point `bp_route_op`;
  10. flash_attention against its plain version (1e-5 float32, 2e-2
      bfloat16; bfloat16 outputs also within bf16 rounding of the plain
-     version's float32 result) at bench_kernels' tile (1, 8, 512, 128)
-     with 4 kv heads, causal, window 256; granite's heads (16 over 8, D=64)
-     at S=2,048, causal; and a ragged S=1,000, not causal; then at
+     version's float32 result), float32 through the CUDA-core kernel and
+     bfloat16 through the sm90 kernel (the launch counters show which), at
+     bench_kernels' tile (1, 8, 512, 128) with 4 kv heads, causal, window
+     256; granite's heads (16 over 8, D=64) at S=2,048, causal; a ragged
+     S=1,000, not causal; a ragged S=777, causal, window 100; then at
      granite's prefill shape (B=1, S=32,768, bfloat16) 17 windows of query
      rows spread over the sequence against a plain computation within bf16
-     rounding, and device times of the kernel, the plain version (at
-     S=4,096: its scores do not fit at 32k) and SDPA beside the bound (both
-     products at the bf16 tensor-core rate);
+     rounding, and device times of the sm90 kernel, of the CUDA-core
+     kernel in float32, of the plain version (at S=4,096: its scores do
+     not fit at 32k) and of SDPA beside the bound (both products at the
+     bf16 tensor-core rate) and the sm90 kernel's own floor (1.5x: P.V
+     runs for p_hi and p_lo);
  11. the prefill path at full width: granite-moe-1b-a400m (24 layers,
      random float32 weights from a seed) through `make_prefill_step` at
      B=1, S=32,768, bfloat16 activations, 2 timed prefills after a short
-     warm-up: finite [1, 1, 49155] logits, flash_attention and bp_topk 24
-     launches each per prefill, the new router queues finite and >= 0; ms
-     per prefill, tokens/s, peak memory, a profiled prefill's busy share;
+     warm-up: finite [1, 1, 49155] logits, the sm90 flash kernel and
+     bp_topk 24 launches each per prefill and the CUDA-core flash kernel
+     none, the new router queues finite and >= 0; ms per prefill,
+     tokens/s, peak memory, a profiled prefill's busy share and flash
+     share; then the 17 row windows' gate on the q, k and v that layer 1
+     projects from the prefill's tokens;
  12. the prefill path on the card against the CPU at full width and 4
      layers (B=2, S=256, float32): the same experts in every layer, equal
-     router queues, full and last-position logits within 1e-4.
+     router queues, full and last-position logits within 1e-4;
+ 13. the bfloat16 prefill path at full width and 4 layers (B=1, S=4,096)
+     through `ModelAPI.logits`: each layer's attention output, as the sm90
+     kernel gave it inside the forward, within bf16 rounding of the plain
+     version's float32 result on that layer's own q, k and v; finite
+     logits.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is
@@ -101,11 +115,14 @@ REF_LAYERS, REF_STEPS = 4, 4    # the serve path's card-vs-CPU check
 LOGIT_ATOL = 1e-4               # its logits tolerance (see phase_serve_ref)
 #: bp_route at bench_kernels' shape: N nodes, C classes, E links.
 ROUTE_N, ROUTE_C, ROUTE_E = 512, 96, 4096
-#: flash_attention cases (B, H, KH, S, D, causal, window), T = S:
-#: bench_kernels' tile, granite's heads, a ragged non-causal S.
+#: flash_attention cases (B, H, KH, S, D, causal, window), T = S, each in
+#: float32 (the CUDA-core kernel) and bfloat16 (the sm90 kernel):
+#: bench_kernels' tile, granite's heads, a ragged non-causal S, a ragged
+#: windowed S at granite's head dim.
 FLASH_CASES = ((1, 8, 4, 512, 128, True, 256),
                (1, 16, 8, 2048, 64, True, None),
-               (1, 16, 8, 1000, 64, False, None))
+               (1, 16, 8, 1000, 64, False, None),
+               (1, 16, 8, 777, 64, True, 100))
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:42
 PREFILL_B, PREFILL_S, PREFILL_WARM_S = 1, 32_768, 1024
 FLASH_PLAIN_S = 4096            # the plain version's timing shape
@@ -231,6 +248,28 @@ def wall_ms(fn, n: int = 60, warm: int = 10) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def phase_build_report(_build) -> None:
+    """What ptxas reported for the flash sources (registers, spills), and
+    the sm90 kernel's SASS: it must hold HGMMA (wgmma) instructions."""
+    for name in ("flash_attention.cu", "flash_attention_sm90.cu"):
+        src = next(s for s in _build.sources() if s.name == name)
+        lines = _build.library_path(src).with_suffix(".log").read_text()
+        log(f"ptxas, {name}: " + " | ".join(
+            ln.strip() for ln in lines.splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln))
+    src = next(s for s in _build.sources()
+               if s.name == "flash_attention_sm90.cu")
+    cuobjdump = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.library_path(src))],
+                          capture_output=True, text=True, timeout=300).stdout
+    ops = [t for ln in sass.splitlines() for t in ln.split()
+           if t.startswith("HGMMA")]
+    check(len(ops) > 0, "the sm90 flash kernel's SASS holds no HGMMA")
+    log(f"SASS of flash_attention_sm90.cu: {len(ops)} HGMMA instructions "
+        f"({', '.join(sorted(set(ops)))})")
 
 
 # ---------------------------------------------------------------------------
@@ -1160,13 +1199,35 @@ def flash_windows(S: int):
     return FLASH_WINDOWS + tuple((int(r), 64) for r in starts)
 
 
+def check_windows(out, q, k, v, what: str):
+    """Hold the rows of `flash_windows` of a causal bf16 ``out`` to a plain
+    float32 computation within FLASH_BF16_ROUNDING; returns (max abs
+    error, largest share of the gate), and the windows."""
+    atol, rtol = FLASH_BF16_ROUNDING
+    windows = flash_windows(q.shape[2])
+    rows_err, rows_use = 0.0, 0.0
+    for r0, n in windows:
+        got, ref = out[:, :, r0:r0 + n].float(), flash_rows_ref(q, k, v, r0, n)
+        err = (got - ref).abs()
+        rows_err = max(rows_err, float(err.max()))
+        rows_use = max(rows_use, float((err / (atol + rtol * ref.abs()))
+                                       .max()))
+        check(within(got, ref, atol, rtol),
+              f"flash_attention on {what}: rows {r0}..{r0 + n - 1} differ "
+              f"from the plain computation by {float(err.max()):.3e}, more "
+              f"than bf16 rounding ({atol} + {rtol} |ref|)")
+    return rows_err, rows_use, windows
+
+
 def phase_flash(dev, peaks):
     """flash_attention against its plain version on FLASH_CASES in float32
-    and bfloat16 (bfloat16 outputs also against the plain version's float32
-    result, within FLASH_BF16_ROUNDING); at granite's prefill shape, the
-    rows of `flash_windows` against a plain computation under the same
-    rule, then device times of the kernel, the plain version (at
-    FLASH_PLAIN_S) and SDPA (the library column, timed only) beside the
+    (the CUDA-core kernel) and bfloat16 (the sm90 kernel; its outputs also
+    against the plain version's float32 result, within
+    FLASH_BF16_ROUNDING), each case through the kernel its dtype selects;
+    at granite's prefill shape, the rows of `flash_windows` against a
+    plain computation under the same rule, then device times of the sm90
+    kernel, of the CUDA-core kernel in float32, of the plain version (at
+    FLASH_PLAIN_S) and of SDPA (the library column, timed only) beside the
     bound."""
     import torch
     import torch.nn.functional as F
@@ -1179,9 +1240,17 @@ def phase_flash(dev, peaks):
         for name, tol in FLASH_TOL.items():
             dtype = getattr(torch, name)
             q, k, v = flash_inputs(gen, B, H, KH, S, D, dtype, dev)
+            before = (K.flash_attention.launches,
+                      K.flash_attention.launches_sm90)
             out = K.flash_attention(q, k, v, causal=causal, window=window)
             ref = flash_attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            sm90 = K.uses_sm90(dtype, D)
+            check((K.flash_attention.launches,
+                   K.flash_attention.launches_sm90) ==
+                  (before[0] + (not sm90), before[1] + sm90),
+                  f"flash_attention at {(B, H, KH, S, D)} {name} did not "
+                  f"launch the {'sm90' if sm90 else 'CUDA-core'} kernel")
             err = max_abs_err([(out, ref)])
             check(out.dtype == dtype and within(out, ref, tol, tol),
                   f"flash_attention differs from its plain version at "
@@ -1196,68 +1265,103 @@ def phase_flash(dev, peaks):
                       f"bf16 rounding ({max_abs_err([(out, ref32)]):.3e})")
             errs.append((out, ref))
             worst[f"S={S},D={D},{name}"] = err
-    log("flash cases, max abs error against the plain version: " +
+    log("flash cases, max abs error against the plain version (float32: "
+        "CUDA-core kernel, bfloat16: sm90 kernel): " +
         json.dumps({k: f"{v:.3e}" for k, v in worst.items()}))
 
     B, H, KH, D = PREFILL_B, 16, 8, 64                 # granite's heads
     S = PREFILL_S
     q, k, v = flash_inputs(gen, B, H, KH, S, D, torch.bfloat16, dev)
     out = K.flash_attention(q, k, v)
-    windows = flash_windows(S)
-    rows_err, rows_use = 0.0, 0.0
-    for r0, n in windows:
-        got, ref = out[:, :, r0:r0 + n].float(), flash_rows_ref(q, k, v, r0, n)
-        err = (got - ref).abs()
-        rows_err = max(rows_err, float(err.max()))
-        rows_use = max(rows_use, float((err / (atol + rtol * ref.abs()))
-                                       .max()))
-        check(within(got, ref, atol, rtol),
-              f"flash_attention at S={S}: rows {r0}..{r0 + n - 1} differ "
-              f"from the plain computation by {float(err.max()):.3e}, more "
-              f"than bf16 rounding ({atol} + {rtol} |ref|)")
+    rows_err, rows_use, windows = check_windows(out, q, k, v,
+                                                f"randn at S={S}")
     ms = device_ms(lambda: K.flash_attention(q, k, v),
-                   match="flash_attention_kernel", n=3, warm=1)
+                   match="flash_attention_sm90_kernel<", n=5, warm=2)
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), n=3, warm=1)
+        q, k, v, is_causal=True, enable_gqa=True), n=5, warm=2)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    simt_ms = device_ms(lambda: K.flash_attention(q32, k32, v32),
+                        match="flash_attention_kernel<", n=2, warm=1)
+    del q32, k32, v32
     q4, k4, v4 = (t[:, :, :FLASH_PLAIN_S] for t in (q, k, v))
     ms4 = device_ms(lambda: K.flash_attention(q4, k4, v4),
-                    match="flash_attention_kernel", n=5, warm=1)
+                    match="flash_attention_sm90_kernel<", n=5, warm=1)
     plain4 = device_ms(lambda: flash_attention_ref(q4, k4, v4), n=5, warm=1)
     nops = 4 * B * H * D * S * (S + 1) // 2      # causal pairs, 2 dots each
     nbytes = 2 * (2 * B * H * S * D + 2 * B * KH * S * D)
     row = dict(
         name="flash_attention", route="cuda",
+        kernel="flash_attention_sm90_kernel",
         source="src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu",
+               "flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:74",
         max_abs_err=max_abs_err(errs), ms=ms, plain_ms=plain4,
-        plain_S=FLASH_PLAIN_S, ms_at_plain_S=ms4,
+        plain_S=FLASH_PLAIN_S, ms_at_plain_S=ms4, simt_f32_ms=simt_ms,
         library_ms=lib_ms, bytes=nbytes, ops=nops)
     # The operands are bf16: both products at the tensor cores' bf16 rate
     # (QK^T of bf16 operands is exact in float32 accumulation; P.V at that
     # rate takes P in bf16, as SDPA does), the least the card could take.
+    # The kernel's own floor runs P.V twice (p_hi and p_lo): 1.5x the work;
+    # it is logged beside the bound, which alone goes into the table.
     row["bound_ms"], row["bound_by"] = bound_of(nbytes, nops, peaks,
                                                 "bfloat16")
-    log(f"kernel flash_attention at B={B}, H={H}, KH={KH}, S={S}, D={D}, "
-        f"bf16, causal: {ms:.4f} ms on the card ({nops / ms / 1e9:.2f} "
-        f"TFLOP/s), bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-        f"({nops} flops at the bf16 tensor-core rate, {nbytes} B); SDPA "
-        f"(library, is_causal, enable_gqa) {lib_ms:.4f} ms; {len(windows)} "
-        f"row windows ({sum(n for _, n in windows)} rows, first rows "
-        f"{[r for r, _ in windows]}) within {rows_err:.3e} of a plain "
-        f"computation, at most {rows_use:.3f} of the bf16 rounding gate.  "
-        f"At S={FLASH_PLAIN_S} (plain_S): kernel {ms4:.4f} ms "
+    split_p_floor_ms = 1.5 * nops / peaks["bfloat16"] * 1e3
+    log(f"kernel flash_attention (sm90) at B={B}, H={H}, KH={KH}, S={S}, "
+        f"D={D}, bf16, causal: {ms:.4f} ms on the card ({nops / ms / 1e9:.2f}"
+        f" TFLOP/s), bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"({nops} flops at the bf16 tensor-core rate, {nbytes} B), the "
+        f"design's split-P floor {split_p_floor_ms:.4f} ms; SDPA (library, "
+        f"is_causal, enable_gqa) {lib_ms:.4f} ms; the CUDA-core kernel in "
+        f"float32 at the same shape {simt_ms:.4f} ms (simt_f32_ms); "
+        f"{len(windows)} row windows ({sum(n for _, n in windows)} rows, "
+        f"first rows {[r for r, _ in windows]}) within {rows_err:.3e} of a "
+        f"plain computation, at most {rows_use:.3f} of the bf16 rounding "
+        f"gate.  At S={FLASH_PLAIN_S} (plain_S): kernel {ms4:.4f} ms "
         f"(ms_at_plain_S), plain version {plain4:.4f} ms (plain_ms; its "
         f"scores do not fit at S={S})")
     return row
 
 
+def phase_flash_projections(cfg, params, toks):
+    """The rows of `flash_windows` held to a plain computation within
+    FLASH_BF16_ROUNDING on the q, k and v that the first layer of ``cfg``
+    projects (norm, projections, RoPE) from ``toks`` in bfloat16, passed
+    as the attention layer passes them."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.common import embed, norm
+    from repro_torch.models.transformer import layer
+    check(cfg.window is None, "the row windows' plain computation is causal "
+          "without a window")
+    with torch.inference_mode():
+        x = embed(cfg, params["embed"], toks, torch.bfloat16)
+        p0 = layer(params["stack"]["layers"], 0)
+        pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
+        q, k, v = (t.contiguous().transpose(1, 2) for t in _project_qkv(
+            cfg, p0["attn"], norm(cfg, x, p0.get("ln1")), pos))
+        before = K.flash_attention.launches_sm90
+        out = K.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        check(K.flash_attention.launches_sm90 == before + 1,
+              "layer 1's projections did not go through the sm90 kernel")
+        err, use, windows = check_windows(
+            out, q, k, v, f"{cfg.name} layer 1's projections")
+    log(f"flash_attention (sm90) on {cfg.name} layer 1's q, k, v at "
+        f"S={toks.shape[1]} (|q| max {float(q.abs().max()):.3f}, |k| max "
+        f"{float(k.abs().max()):.3f}): {len(windows)} row windows within "
+        f"{err:.3e} of a plain computation, at most {use:.3f} of the bf16 "
+        f"rounding gate")
+
+
 def phase_prefill(dev):
     """granite-moe-1b-a400m at full width through `make_prefill_step` at
     B=PREFILL_B, S=PREFILL_S, bfloat16 activations: a warm-up at a short
-    S, 2 timed prefills with the launch counters read around them, then
-    one profiled prefill through `ModelAPI.logits` (the function the step
-    wraps), which also returns the new router queues."""
+    S, 2 timed prefills with the launch counters read around them (every
+    attention through the sm90 flash kernel, none through the CUDA-core
+    one), then one profiled prefill through `ModelAPI.logits` (the
+    function the step wraps), which also returns the new router queues;
+    last, `phase_flash_projections` on the same weights and tokens."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1287,6 +1391,7 @@ def phase_prefill(dev):
         f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     FK.flash_attention.launches = 0
+    FK.flash_attention.launches_sm90 = 0
     TK.bp_topk.launches = 0
     walls = []
     for _ in range(2):
@@ -1295,12 +1400,14 @@ def phase_prefill(dev):
         logits = step(params, {"tokens": toks}, H)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t1) * 1e3)
-    launches = {"flash_attention": FK.flash_attention.launches,
+    launches = {"flash_attention_sm90": FK.flash_attention.launches_sm90,
+                "flash_attention": FK.flash_attention.launches,
                 "bp_topk": TK.bp_topk.launches}
-    check(launches == {"flash_attention": 2 * cfg.n_layers,
-                       "bp_topk": 2 * cfg.n_layers},
+    check(launches == {"flash_attention_sm90": 2 * cfg.n_layers,
+                       "flash_attention": 0, "bp_topk": 2 * cfg.n_layers},
           f"launches {launches} in 2 prefills, expected {cfg.n_layers} of "
-          f"each per prefill")
+          f"the sm90 flash kernel and of bp_topk per prefill, none of the "
+          f"CUDA-core flash kernel")
     check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab) and
           logits.dtype == torch.bfloat16 and
           bool(torch.isfinite(logits).all()),
@@ -1327,10 +1434,12 @@ def phase_prefill(dev):
         for e in evs:
             kinds[e.name] = kinds.get(e.name, 0) + e.device_time / 1e3
         top = sorted(kinds.items(), key=lambda kv: -kv[1])[:6]
+        flash = sum(t for n, t in kinds.items() if "flash_attention" in n)
         busy = (f"{len(evs)} CUDA device activities, {dev_ms:.4f} ms of "
                 f"device time, busy {dev_ms / med:.4f} of the unprofiled "
-                f"prefill's {med:.4f} ms; most time: " + "; ".join(
-                    f"{n[:50]} {t:.4f} ms" for n, t in top))
+                f"prefill's {med:.4f} ms; flash attention {flash:.4f} ms "
+                f"({flash / dev_ms:.4f} of the device time); most time: " +
+                "; ".join(f"{n[:50]} {t:.4f} ms" for n, t in top))
     else:
         busy = "device-busy share not measured (no device activity traced)"
     log(f"prefill: B={PREFILL_B}, S={PREFILL_S}, bf16 activations, 2 "
@@ -1341,6 +1450,7 @@ def phase_prefill(dev):
         f"{max_abs_err([(again, logits)]):.3e} of the step's; new router "
         f"queues sum {float(H_new.sum()):.1f}, max {float(H_new.max()):.1f}, "
         f"{int((H_new > 0).sum())} of {H_new.numel()} positive")
+    phase_flash_projections(cfg, params, toks)
     return launches
 
 
@@ -1526,6 +1636,77 @@ def phase_prefill_reference(dev):
         f"; max |logit| {float(fb.abs().max()):.3f}")
 
 
+def phase_prefill_bf16_layers(dev):
+    """The bfloat16 prefill path at full width and REF_LAYERS layers, B=1,
+    S=FLASH_PLAIN_S, through `ModelAPI.logits`.  Teacher-forced: each
+    layer's attention output, as the sm90 kernel gave it inside the
+    forward, is held to the plain version's float32 result on that layer's
+    own q, k and v within FLASH_BF16_ROUNDING; every layer's attention
+    must go through the sm90 kernel and the logits must be finite."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import get_model
+    t0 = time.perf_counter()
+    cfg, params = serve_model(dev, n_layers=REF_LAYERS, seed=6)
+    api = get_model(cfg)
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, FLASH_PLAIN_S)), device=dev)
+    calls = []
+    original = A.flash_attention_op
+
+    def recording(q, k, v, **kw):
+        out = original(q, k, v, **kw)
+        calls.append((q, k, v, out, kw))
+        return out
+
+    atol, rtol = FLASH_BF16_ROUNDING
+    before = (K.flash_attention.launches, K.flash_attention.launches_sm90)
+    A.flash_attention_op = recording
+    try:
+        with torch.inference_mode():
+            logits, _, _ = api.logits(
+                params, {"tokens": toks}, activ_dtype=torch.bfloat16,
+                router_H=api.init_state(device=dev).router_H)
+            torch.cuda.synchronize()
+    finally:
+        A.flash_attention_op = original
+    check((K.flash_attention.launches, K.flash_attention.launches_sm90) ==
+          (before[0], before[1] + cfg.n_layers) and
+          len(calls) == cfg.n_layers,
+          f"bf16 prefill: {len(calls)} attention calls, launches "
+          f"{K.flash_attention.launches - before[0]} (CUDA-core) and "
+          f"{K.flash_attention.launches_sm90 - before[1]} (sm90), expected "
+          f"{cfg.n_layers} sm90 launches only")
+    errs, uses = [], []
+    with torch.inference_mode():
+        for i, (q, k, v, out, kw) in enumerate(calls):
+            ref = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+            err = (out.float() - ref).abs()
+            errs.append(float(err.max()))
+            uses.append(float((err / (atol + rtol * ref.abs())).max()))
+            check(out.dtype == torch.bfloat16 and
+                  within(out, ref, atol, rtol),
+                  f"bf16 prefill, layer {i}: attention differs from the "
+                  f"plain float32 result on its own q, k, v by "
+                  f"{errs[-1]:.3e}, more than bf16 rounding ({atol} + "
+                  f"{rtol} |ref|)")
+            del ref, err
+    check(tuple(logits.shape) == (1, FLASH_PLAIN_S, cfg.vocab) and
+          bool(torch.isfinite(logits).all()),
+          f"bf16 prefill logits {tuple(logits.shape)} not finite or "
+          f"misshapen")
+    log(f"bf16 prefill layers: {cfg.name} full width at {REF_LAYERS} layers,"
+        f" B=1, S={FLASH_PLAIN_S}, bfloat16 activations "
+        f"({time.perf_counter() - t0:.1f} s): each layer's sm90 attention "
+        f"within {', '.join(f'{e:.3e}' for e in errs)} of the plain float32 "
+        f"result on its own q, k, v, at most "
+        f"{', '.join(f'{u:.3f}' for u in uses)} of the bf16 rounding gate; "
+        f"logits finite, max |logit| {float(logits.abs().max()):.3f}")
+
+
 def to_device_tree(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device_tree(v, dev) for k, v in tree.items()}
@@ -1567,6 +1748,7 @@ def main() -> int:
     secs = _build.build_all()
     log(f"build: {len(_build.sources())} source(s) with nvcc in parallel in "
         f"{secs:.2f} s")
+    phase_build_report(_build)
 
     rows = phase_kernels(dev, peaks)
     rows["bp_route_decide"] = phase_route(dev, peaks)
@@ -1579,8 +1761,9 @@ def main() -> int:
     phase_router(dev)
     launches["bp_topk"] = phase_serve(dev)
     phase_serve_reference(dev)
-    launches["flash_attention"] = phase_prefill(dev)["flash_attention"]
+    launches["flash_attention"] = phase_prefill(dev)["flash_attention_sm90"]
     phase_prefill_reference(dev)
+    phase_prefill_bf16_layers(dev)
     launches["bp_route_decide"] = rows["bp_route_decide"]["launches"]
     for k, r in rows.items():
         r["launches"] = launches[k]
@@ -1589,8 +1772,10 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # A plain version timed at another shape than the kernel says which.
-    shape = ("plain_S", "ms_at_plain_S")
+    # A plain version timed at another shape than the kernel says which;
+    # flash attention also names its kernel and the CUDA-core kernel's
+    # float32 time.
+    shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}
     for r in table["kernels"]:

@@ -3,16 +3,27 @@
 Each `csrc/*.cu` file becomes one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds), compiled for Hopper:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 <flags>
          -shared -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <src>
 
+where ``<flags>`` are the source's own (`SOURCE_FLAGS`, by file name):
+
+  * ``bp_slot.cu``, ``bp_topk.cu``, ``bp_route.cu``: ``-fmad=false``, and
+    no ``--use_fast_math``.  Both are part of these kernels' bit-exactness
+    contract: their plain versions spell every rounding, and a contracted
+    multiply-add would round once where they round twice (see the
+    sources).
+  * ``flash_attention.cu``, ``flash_attention_sm90.cu``: none but
+    ``-Xptxas -v`` (registers, shared memory and spills, kept in the
+    build log).  Flash attention agrees with its plain version to
+    rounding, not bit for bit, so its multiply-adds may fuse.
+
 Libraries go to ``build/repro_torch/`` at the checkout's root (listed in
-.gitignore), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is built when a
-module is imported: `load` builds at a kernel's first CUDA call, and
-`build_all` builds every source up front, one nvcc per source, all at once.  ``-fmad=false`` and the absence
-of ``--use_fast_math`` are part of the kernels' bit-exactness contract (see
-the sources).
+.gitignore), named by a hash of the source and its flags, so an edited
+source or flag is rebuilt and an unchanged one is reused; nvcc's output
+goes beside it as ``<name>-<hash>.log``.  Nothing is built when a module
+is imported: `load` builds at a kernel's first CUDA call, and `build_all`
+builds every source up front, one nvcc per source, all at once.
 """
 from __future__ import annotations
 
@@ -31,7 +42,15 @@ from typing import Dict, List
 PKG_ROOT = pathlib.Path(__file__).resolve().parents[1]      # src/repro_torch
 BUILD_DIR = PKG_ROOT.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: Each source's flags beside NVCC_FLAGS, by file name (see the docstring).
+SOURCE_FLAGS = {
+    "bp_slot.cu": ("-fmad=false",),
+    "bp_topk.cu": ("-fmad=false",),
+    "bp_route.cu": ("-fmad=false",),
+    "flash_attention.cu": ("-Xptxas", "-v"),
+    "flash_attention_sm90.cu": ("-Xptxas", "-v"),
+}
 
 _LOCK = threading.Lock()
 _SOURCE_LOCKS: Dict[pathlib.Path, threading.Lock] = {}
@@ -55,9 +74,17 @@ def nvcc() -> str:
     return found
 
 
+def flags(src: pathlib.Path) -> tuple:
+    """The nvcc flags of one source: NVCC_FLAGS and its SOURCE_FLAGS."""
+    name = pathlib.Path(src).name
+    if name not in SOURCE_FLAGS:
+        raise KeyError(f"{name}: no entry in _build.SOURCE_FLAGS")
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def library_path(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(src)).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -72,13 +99,14 @@ def build(src: pathlib.Path) -> pathlib.Path:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [nvcc(), *flags(src), "-o", tmp, str(src)]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                                f"{' '.join(cmd)}\n{proc.stdout}")
+        out.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, out)      # atomic: a reader never sees half a file
     return out
 

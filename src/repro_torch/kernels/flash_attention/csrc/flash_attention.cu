@@ -21,14 +21,17 @@
 // operands' type; this kernel computes on the CUDA cores in float32, whose
 // 67 TFLOP/s would take 32.8 ms) and 0.06 ms at 3.35 TB/s.
 //
-// Design (simple and right first; wgmma, TMA and bf16 tensor cores are for
-// a later kernel): one CTA of 64 threads per (64-query block, head, batch
-// row), one thread per query row.  The CTA stages its scaled q block in
-// shared memory, transposed so that each thread's float4 loads are
-// conflict-free, then walks the kv blocks its rows can see: each 64-key
-// block of K and V is staged in shared memory as float32, and every thread
-// computes its row's 64 scores in registers (d outer, keys inner: one
-// broadcast float4 load feeds four FMAs per key), folds them into its
+// This is the CUDA-core kernel: the wrapper (kernel.py) sends it float32
+// inputs and bfloat16 inputs with head dim 16 or 32.  bfloat16 at head dim
+// 64 or 128 goes to flash_attention_sm90.cu (wgmma, TMA).
+//
+// Design (simple and right first): one CTA of 64 threads per (64-query
+// block, head, batch row), one thread per query row.  The CTA stages its
+// scaled q block in shared memory, transposed so that each thread's float4
+// loads are conflict-free, then walks the kv blocks its rows can see: each
+// 64-key block of K and V is staged in shared memory as float32, and every
+// thread computes its row's 64 scores in registers (d outer, keys inner:
+// one broadcast float4 load feeds four FMAs per key), folds them into its
 // running max and sum, and accumulates p . v into D float32 registers.
 // Blocks that the causal or window mask empties for every row of the CTA
 // are not visited (visiting them would leave m, l and acc unchanged), and
@@ -39,14 +42,15 @@
 // are addressed through their batch, head and sequence strides (the last
 // axis contiguous), so the model's [B, S, H, D] tensors need no transpose.
 //
-// The build's -fmad=false (part of the other kernels' bit-exactness
-// contract) would split every multiply-add here, so the dot products are
-// written with fmaf.  This kernel has no bit-exactness contract: it agrees
-// with the plain version (ref.py) to rounding.
+// The dot products are written with fmaf.  This kernel has no
+// bit-exactness contract: it agrees with the plain version (ref.py) to
+// rounding, and its build (kernels/_build.py) leaves multiply-adds free to
+// fuse (no -fmad=false, which bp_slot, bp_topk and bp_route keep).
 //
-// Head dims 16, 32, 64 and 128 are instantiated.  The C entry launches on
-// the caller's stream and returns cudaGetLastError(), which the ctypes
-// wrapper turns into an exception.
+// Instantiated: head dims 16, 32, 64 and 128 in float32; 16 and 32 in
+// bfloat16.  The C entry launches on the caller's stream and returns
+// cudaGetLastError() (cudaErrorInvalidValue for a shape it does not
+// instantiate), which the ctypes wrapper turns into an exception.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -199,15 +203,25 @@ static int launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int dispatch(const void* q, const void* k, const void* v, void* o,
-                    int B, int H, int D, const Params& p,
-                    cudaStream_t stream) {
+static int dispatch_f32(const void* q, const void* k, const void* v,
+                        void* o, int B, int H, int D, const Params& p,
+                        cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<16, T>(q, k, v, o, B, H, p, stream);
-    case 32: return launch<32, T>(q, k, v, o, B, H, p, stream);
-    case 64: return launch<64, T>(q, k, v, o, B, H, p, stream);
-    case 128: return launch<128, T>(q, k, v, o, B, H, p, stream);
+    case 16: return launch<16, float>(q, k, v, o, B, H, p, stream);
+    case 32: return launch<32, float>(q, k, v, o, B, H, p, stream);
+    case 64: return launch<64, float>(q, k, v, o, B, H, p, stream);
+    case 128: return launch<128, float>(q, k, v, o, B, H, p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+static int dispatch_bf16(const void* q, const void* k, const void* v,
+                         void* o, int B, int H, int D, const Params& p,
+                         cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  switch (D) {
+    case 16: return launch<16, bf16>(q, k, v, o, B, H, p, stream);
+    case 32: return launch<32, bf16>(q, k, v, o, B, H, p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -234,8 +248,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.window = window;
   p.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(q, k, v, o, B, H, D, p, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, B, H, D, p, s);
+  if (dtype == 0) return dispatch_f32(q, k, v, o, B, H, D, p, s);
+  if (dtype == 1) return dispatch_bf16(q, k, v, o, B, H, D, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,21 +1,34 @@
-"""Wrapper of the flash attention CUDA kernel.
+"""Wrapper of the flash attention CUDA kernels.
 
 `flash_attention` replaces the Pallas TPU kernel `repro.kernels.
-flash_attention.kernel.flash_attention`; its CUDA source is
-`csrc/flash_attention.cu`.  The wrapper checks shapes, dtypes, device and
-strides, then:
+flash_attention.kernel.flash_attention`.  The wrapper checks shapes,
+dtypes, device and strides, then:
 
   * for CPU tensors, runs the plain PyTorch version in `ref.py`;
-  * for CUDA tensors, launches the kernel (building it at first use, see
-    `repro_torch.kernels._build`) or raises — there is no fallback.
+  * for CUDA tensors, launches one of two kernels (building it at first
+    use, see `repro_torch.kernels._build`) or raises.  There is no
+    fallback from one kernel to the other or to the plain version.
 
-q, k and v may have any strides with the head dim contiguous: the kernel
-reads them through their batch, head and sequence strides, so a
-[B, S, H, D] tensor passes as its ``transpose(1, 2)`` view without a copy,
-and the output takes q's strides (`torch.empty_like`).  The kernel's tile
-is fixed at 64 queries x 64 keys and takes any S and T.
+The kernel is chosen by dtype and head dim only:
 
-``flash_attention.launches`` counts CUDA launches only.
+  * bfloat16 with D in {64, 128}: `csrc/flash_attention_sm90.cu`, both
+    products on the bf16 tensor cores (wgmma, K/V staged by TMA), 128-query
+    x 64- or 128-key tiles;
+  * float32 (D in {16, 32, 64, 128}) and bfloat16 with D in {16, 32}:
+    `csrc/flash_attention.cu`, the CUDA-core kernel, 64 x 64 tiles.
+
+With T = 0 no row has a key, and with an empty q there is no row: the
+wrapper then returns zeros without a launch, whatever the dtype.  Both kernels take any S and T >= 1 and read q, k and v
+through their batch, head and sequence strides with the head dim
+contiguous, so a [B, S, H, D] tensor passes as its ``transpose(1, 2)`` view
+without a copy; the output takes q's strides (`torch.empty_like`).  The
+sm90 kernel reads through TMA tensor maps, which need a 16-byte aligned
+base and strides of a multiple of 16 bytes: an input that lacks either is
+first copied into a contiguous clone (the model's projections never are).
+
+``flash_attention.launches`` counts launches of the CUDA-core kernel and
+``flash_attention.launches_sm90`` those of the sm90 kernel; a CPU call
+counts none.
 """
 from __future__ import annotations
 
@@ -29,9 +42,12 @@ from .. import _build
 from ..bp_slot.kernel import _raise_on
 from .ref import flash_attention_ref
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / \
-    "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)   # head dims the source instantiates
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"            # the CUDA-core kernel
+SOURCE_SM90 = CSRC / "flash_attention_sm90.cu"  # the tensor-core kernel
+#: Head dims each kernel instantiates, by dtype.
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (16, 32)}
+HEAD_DIMS_SM90 = (64, 128)                      # bfloat16 only
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -47,6 +63,40 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_sm90() -> ctypes.CDLL:
+    lib = _build.load(SOURCE_SM90)
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_sm90_fwd.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+            ctypes.POINTER(ctypes.c_longlong), ci, ci, ctypes.c_float, vp]
+        lib.flash_attention_sm90_fwd.restype = ci
+        lib._typed = True
+    return lib
+
+
+def uses_sm90(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a CUDA call of this dtype and head dim runs the sm90
+    kernel (else the CUDA-core kernel)."""
+    return dtype == torch.bfloat16 and head_dim in HEAD_DIMS_SM90
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """A 16-byte aligned bf16 tensor whose batch, head and sequence strides
+    are positive multiples of 8 elements (16 bytes), where the dim is
+    longer than 1: what a TMA tensor map can describe."""
+    return t.data_ptr() % 16 == 0 and all(
+        s > 0 and s % 8 == 0 for s, n in zip(t.stride()[:3], t.shape[:3])
+        if n > 1)
+
+
+def _map_strides(t: torch.Tensor):
+    """t's (batch, head, sequence) strides, 8 for a dim of length 1 (whose
+    stride no address uses, and which a tensor map still checks)."""
+    return tuple(s if n > 1 else 8
+                 for s, n in zip(t.stride()[:3], t.shape[:3]))
+
+
 def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
@@ -56,7 +106,7 @@ def _check(q, k, v):
                             f"got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name}: on {t.device}, expected {q.device}")
-        if t.stride(-1) != 1:
+        if t.stride(-1) != 1 and t.numel():      # empty: no layout to read
             raise ValueError(f"{name}: the head dim must be contiguous")
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
@@ -71,7 +121,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None) -> torch.Tensor:
     """q [B, H, S, D], k/v [B, KH, T, D] (float32 or bfloat16, head dim
     contiguous) -> [B, H, S, D] in q's dtype: causal GQA attention with an
-    optional sliding window, float32 math (see `ref.flash_attention_ref`)."""
+    optional sliding window, float32 math (see `ref.flash_attention_ref`).
+    On CUDA, bfloat16 with D in {64, 128} runs the sm90 kernel and
+    everything else the CUDA-core kernel (see the module's docstring)."""
     _check(q, k, v)
     if window is not None and window < 0:
         raise ValueError(f"window={window} must be None or >= 0")
@@ -82,9 +134,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: unsupported device {dev}")
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} is not one of the "
-                         f"kernel's {HEAD_DIMS}")
+    sm90 = uses_sm90(q.dtype, D)
+    if not sm90 and D not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"flash_attention: head dim {D} in {q.dtype} is "
+                         f"not one of the kernels' {HEAD_DIMS[q.dtype]} or, "
+                         f"in bfloat16, {HEAD_DIMS_SM90}")
+    if T == 0 or q.numel() == 0:     # no key for any row, or no row: 0
+        return torch.zeros_like(q)
+    if sm90:
+        return _flash_sm90(q, k, v, causal=causal, window=window)
     out = torch.empty_like(q)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
@@ -100,4 +158,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def _flash_sm90(q, k, v, *, causal, window):
+    """The sm90 kernel on CUDA bfloat16 tensors with D in {64, 128}."""
+    B, H, S, D = q.shape
+    KH, T = k.shape[1], k.shape[2]
+    q, k, v = (t if tma_ready(t) else
+               t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v) for s in _map_strides(t)),
+        *out.stride()[:3])
+    dev = q.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib_sm90().flash_attention_sm90_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            KH, S, T, D, strides, int(causal),
+            -1 if window is None else int(window), 1.0 / math.sqrt(D),
+            stream)
+    _raise_on(err, "flash_attention (sm90)")
+    flash_attention.launches_sm90 += 1
+    return out
+
+
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0

@@ -2,8 +2,8 @@
 
 Port of `repro.kernels.flash_attention.ops.flash_attention_op`.  The
 reference's ``block_q``/``block_k`` choose the Pallas kernel's tiles and
-require S and T to be multiples of them; the CUDA kernel's tile is fixed
-at 64 x 64 and takes any S and T, so here they are accepted for the
+require S and T to be multiples of them; the CUDA kernels' tiles are fixed
+(see `kernel.py`) and take any S and T, so here they are accepted for the
 signature's sake and do not change the result.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        block_k: int = 128) -> torch.Tensor:
     """q [B, H, S, D], k/v [B, KH, T, D] -> [B, H, S, D] through the
     `flash_attention` wrapper (the CUDA kernel on a CUDA tensor)."""
-    del block_q, block_k                  # the kernel's tile is fixed
+    del block_q, block_k                  # the kernels' tiles are fixed
     return flash_attention(q, k, v, causal=causal, window=window)
 
 

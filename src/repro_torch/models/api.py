@@ -19,6 +19,7 @@ from typing import Any
 
 import torch
 
+from ..device import resolve_device
 from . import transformer
 
 
@@ -31,7 +32,10 @@ class ModelAPI:
         return self.mod.init_lm(self.cfg, gen, dtype=dtype)
 
     def init_state(self, device=None):
-        return transformer.init_model_state(self.cfg, device=device)
+        """The model's state (MoE router queues) on ``device``: CUDA
+        unless asked (`device.resolve_device`), raising without a card."""
+        return transformer.init_model_state(self.cfg,
+                                            device=resolve_device(device))
 
     def logits(self, params, batch, *, activ_dtype=torch.bfloat16,
                remat="none", router_H=None, last_only=False):
@@ -40,8 +44,9 @@ class ModelAPI:
                                   router_H=router_H, last_only=last_only)
 
     def init_decode(self, batch: int, max_len: int, dtype, device=None):
+        """Empty decode caches on ``device``, resolved as `init_state`."""
         return self.mod.init_decode_caches(self.cfg, batch, max_len, dtype,
-                                           device=device)
+                                           device=resolve_device(device))
 
     def decode_step(self, params, caches, batch, *,
                     activ_dtype=torch.bfloat16, router_H=None):

@@ -217,9 +217,9 @@ def test_lm_decode_step_matches_reference_over_8_steps(arch):
     B, max_len = 3, 16
     japi, tapi = jget_model(jcfg), get_model(tcfg)
     jc = japi.init_decode(B, max_len, jnp.float32)
-    tc = tapi.init_decode(B, max_len, torch.float32)
+    tc = tapi.init_decode(B, max_len, torch.float32, device="cpu")
     jH = japi.init_state().router_H
-    tH = tapi.init_state().router_H
+    tH = tapi.init_state(device="cpu").router_H
     jstep = jax.jit(lambda p, c, t, H: japi.decode_step(
         p, c, {"tokens": t}, activ_dtype=jnp.float32, router_H=H))
     rng = np.random.default_rng(5)
@@ -293,6 +293,20 @@ def test_engine_runs_on_cuda_unless_told_otherwise():
     params, _ = split_tree(get_model(tcfg).init(torch.Generator()))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.Engine(tcfg, params)
+
+
+def test_model_api_state_and_caches_default_to_cuda(monkeypatch):
+    """`init_state` and `init_decode` resolve their device like every
+    other entry point: CUDA unless asked, raising without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    api = get_model(configs("granite-moe-1b-a400m")[0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_state()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_decode(2, 8, torch.float32)
+    assert api.init_state(device="cpu").router_H.device.type == "cpu"
+    caches = api.init_decode(2, 8, torch.float32, device="cpu")
+    assert caches["layers"].k.device.type == "cpu"
 
 
 def test_serve_cli_on_the_cpu(capsys):

@@ -153,10 +153,10 @@ def test_forward_matches_stepwise_decode(arch):
     api = get_model(tcfg)
     params, _ = split_tree(api.init(torch.Generator().manual_seed(0)))
     toks = torch.from_numpy(tokens(tcfg, seed=4))
-    H = api.init_state().router_H
+    H = api.init_state(device="cpu").router_H
     full, _, _ = api.logits(params, {"tokens": toks},
                             activ_dtype=torch.float32, router_H=H)
-    caches = api.init_decode(B, S + 2, torch.float32)
+    caches = api.init_decode(B, S + 2, torch.float32, device="cpu")
     for t in range(S):
         step, caches = api.decode_step(params, caches,
                                        {"tokens": toks[:, t]},
@@ -203,8 +203,9 @@ def test_serve_step_is_the_decode_step():
     rcfg = tconfigs.RunConfig(tcfg, tconfigs.SHAPES["decode_32k"],
                               activ_dtype="float32")
     serve = tstep.make_serve_step(rcfg)
-    caches = [api.init_decode(B, 8, torch.float32) for _ in range(2)]
-    H = api.init_state().router_H
+    caches = [api.init_decode(B, 8, torch.float32, device="cpu")
+              for _ in range(2)]
+    H = api.init_state(device="cpu").router_H
     for t in range(3):
         batch = {"tokens": torch.tensor([t, t + 5])}
         a, caches[0] = serve(tp, caches[0], batch, H)
