@@ -12,8 +12,8 @@ on failure:
 
   1. device and build: the card, torch and CUDA versions, full-float32
      matmuls (no TF32), kernel build time; ptxas's registers and spills for
-     the flash sources, and the sm90 flash kernel's SASS, which must hold
-     HGMMA (wgmma) instructions;
+     the flash sources, the fused slot step's registers, and the sm90
+     flash kernel's SASS, which must hold HGMMA (wgmma) instructions;
   2. each kernel against its plain PyTorch version on the card, random and
      tie-heavy inputs, outputs bit-identical, device times beside each
      kernel's bound: bp_slot at the fleet path's shapes (B=1512 sims, N=16,
@@ -22,8 +22,15 @@ on failure:
   3. the fleet path at full width: `run_fleet` over 1,512 pi3_reg sims (8
      registry families x topo_seeds 0-20 x 3 rates x 3 seeds, padded to the
      atlas hull (16, 51, 4)), T=4096, chunk=512, early stop; results are
-     held to the exact LP bound, and the kernels' launch counters to the
-     slots advanced; a profiler trace counts CUDA launches per slot;
+     held to the exact LP bound; the fused slot-step kernel
+     (`bp_slot_step.cu`) launches once per slot advanced, B1 and B2 never;
+     a profiler trace counts CUDA launches per slot and the fused
+     kernel's share; then `phase_slot_step`: the fused kernel against the
+     plain slot step on the card and on the CPU, teacher-forced, 256 slots
+     of the 1,512 sims and 32 slots of each other policy (pi1, pi1p, pi2
+     with bound pairing, pi3bar, pi3 on wireless_grid), n*, Z and the
+     integer leaves equal to both, the float leaves within 1e-5; its
+     device time per launch beside its bound and the plain slot step's;
   4. determinism and lane independence: a 64-sim subset twice, and one job
      alone, must give bit-identical metrics; and the card against the
      port's plain path on the CPU, all 1,512 sims for 256 slots from one
@@ -83,6 +90,7 @@ no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -106,6 +114,15 @@ LP_TOL = 1.02            # windowed rates may exceed the bound by drain noise
 #: comp_balance_decide panels that each pairing does not read (bp_slot.cu).
 BALANCE_UNREAD = {"fifo": ("x_net",), "bound": ("ca1", "ca2", "cc")}
 REF_SLOTS = 256          # slots of the card-vs-CPU comparison (phase 4)
+#: phase_slot_step: slots of the main batch (pi3_reg), then slots and sims
+#: of each other policy's case, (scenario, policy, pad_extra,
+#: fail_pattern, pairing) as in tests/test_torch_bp_slot.py's CASES.
+STEP_SLOTS, STEP_CASE_SLOTS, STEP_CASE_B = 256, 32, 256
+STEP_CASES = (("paper_grid", "pi1", 1, 0, "fifo"),
+              ("paper_grid", "pi1p", 0, 0, "fifo"),
+              ("ring", "pi2", 1, 0, "bound"),
+              ("ring", "pi3bar", 3, 3, "fifo"),
+              ("wireless_grid", "pi3", 0, 0, "fifo"))
 #: bp_topk shapes (T, E, k): one decode step of the serve phase (4 slots,
 #: granite's 32 experts top-8) first, then the kernel table's three.
 TOPK_SHAPES = ((4, 32, 8), (8, 32, 8), (1024, 64, 6), (4096, 32, 8))
@@ -202,17 +219,24 @@ def device_ms(fn, match: str | None = None, n: int = 60,
     activities a profiler trace records for each of ``n`` calls after a
     warm-up (only those whose name contains ``match``, when given).  Host
     overhead between launches is excluded: this is the card's time.  The
-    profiler can drop an activity from a window (one of 60 once, torch
-    2.11 on an H100); such a window is measured again, up to
-    PROFILE_TRIES windows in all."""
+    profiler can leave out the records of a few launches at the edge of a
+    window (torch 2.11 on an H100: 4-5 of 60 launches of the fused slot
+    step in some processes, while the runtime recorded all 60 and the
+    launch counter moved 60; 1 of 2 of the CUDA-core flash kernel once),
+    so with ``match``, where a call launches one matching kernel, a window
+    runs max(2, n // 4) spare calls as well, and the median is over every
+    call recorded, at least ``n``.  A window that
+    still records fewer is logged and measured again, up to PROFILE_TRIES
+    windows in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    calls = n + max(2, n // 4) if match else n
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.events()
@@ -220,8 +244,12 @@ def device_ms(fn, match: str | None = None, n: int = 60,
                and (match is None or match in e.name)]
         if len(evs) >= n:
             break
+        log(f"device_ms: the profiler saw {len(evs)} device activities "
+            f"for {calls} calls (match {match!r}); measuring again")
     check(len(evs) >= n, f"profiler saw {len(evs)} device activities for "
-          f"{n} calls in each of {PROFILE_TRIES} windows")
+          f"{calls} calls in each of {PROFILE_TRIES} windows")
+    if match:
+        return statistics.median(e.device_time for e in evs) / 1e3
     if len(evs) % n:                     # calls differ: report the mean
         return sum(e.device_time for e in evs) / n / 1e3
     k = len(evs) // n
@@ -251,17 +279,24 @@ def wall_ms(fn, n: int = 60, warm: int = 10) -> float:
 
 
 def phase_build_report(_build) -> None:
-    """What ptxas reported for the flash sources (registers, spills), and
-    the sm90 kernel's SASS: it must hold HGMMA (wgmma) instructions."""
+    """What ptxas reported for the flash sources (registers, spills), the
+    fused slot step's registers and shared memory, and the sm90 kernel's
+    SASS: it must hold HGMMA (wgmma) instructions."""
     for name in ("flash_attention.cu", "flash_attention_sm90.cu"):
         src = next(s for s in _build.sources() if s.name == name)
         lines = _build.library_path(src).with_suffix(".log").read_text()
         log(f"ptxas, {name}: " + " | ".join(
             ln.strip() for ln in lines.splitlines()
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln))
+    cuobjdump = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
+    src = next(s for s in _build.sources() if s.name == "bp_slot_step.cu")
+    usage = subprocess.run([str(cuobjdump), "--dump-resource-usage",
+                            str(_build.library_path(src))],
+                           capture_output=True, text=True, timeout=300).stdout
+    log("resource usage, bp_slot_step.cu: " + " | ".join(
+        ln.strip() for ln in usage.splitlines() if "REG" in ln))
     src = next(s for s in _build.sources()
                if s.name == "flash_attention_sm90.cu")
-    cuobjdump = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(_build.library_path(src))],
                           capture_output=True, text=True, timeout=300).stdout
@@ -539,19 +574,23 @@ def phase_main(dev):
     dims = PadDims(N_MAIN, E_MAIN, NC_MAIN)
     K.slot_route_decide.launches = 0
     K.comp_balance_decide.launches = 0
+    K.slot_step_fused.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_fleet(jobs, T=T_MAIN, chunk=CHUNK_MAIN, device=dev, dims=dims,
                     early_stop=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"slot_route_decide": K.slot_route_decide.launches,
+    launches = {"bp_slot_step": K.slot_step_fused.launches,
+                "slot_route_decide": K.slot_route_decide.launches,
                 "comp_balance_decide": K.comp_balance_decide.launches}
     check(res.n_programs == 1, "one policy group expected")
-    check(launches["slot_route_decide"] == res.slot_steps > 0,
-          f"route launches {launches} != slots advanced {res.slot_steps}")
-    check(launches["comp_balance_decide"] == 2 * res.slot_steps,
-          f"comp-balance launches {launches} != 2 x {res.slot_steps}")
+    check(launches["bp_slot_step"] == res.slot_steps > 0,
+          f"fused slot-step launches {launches} != slots advanced "
+          f"{res.slot_steps}")
+    check(launches["slot_route_decide"] == 0 and
+          launches["comp_balance_decide"] == 0,
+          f"the main path launched B1/B2 on their own: {launches}")
     useful = res.column("useful_rate")
     check(bool(np.isfinite(useful).all() and
                np.isfinite(res.column("mean_queue")).all()),
@@ -643,6 +682,8 @@ def phase_profile(dev, wall_per_slot_ms: float):
         return None
     per_slot = len(dev_events) / runner.chunk
     dev_us = sum(e.device_time for e in dev_events) / runner.chunk
+    fused = [e for e in dev_events if "bp_slot_step_kernel" in e.name]
+    fused_us = sum(e.device_time for e in fused) / runner.chunk
     kinds = {}
     for e in dev_events:
         kinds[e.name] = kinds.get(e.name, 0) + 1
@@ -652,7 +693,9 @@ def phase_profile(dev, wall_per_slot_ms: float):
         f"(kernels, copies and memsets), {dev_us:.2f} us of device time per "
         f"slot at B={len(jobs)}; against the main run's "
         f"{wall_per_slot_ms:.4f} ms per slot the device is idle "
-        f"{idle:.4f} of the time; most frequent: "
+        f"{idle:.4f} of the time; the fused slot step "
+        f"{len(fused) / runner.chunk:.2f} launches and {fused_us:.2f} us per "
+        f"slot, {fused_us / dev_us:.4f} of the device time; most frequent: "
         + "; ".join(f"{n[:60]} x{c / runner.chunk:.2f}" for n, c in top))
     return per_slot
 
@@ -733,7 +776,7 @@ def carry_diff(a, b):
     every raw leaf}, whether every non-float leaf is equal)."""
     import torch
     xa, xb = named_leaves(on_device(a, "cpu")), named_leaves(b)
-    B = b.t.shape[0]
+    B = xb["Q"].shape[0]
     scale = torch.stack([xb[k].reshape(B, -1).abs().amax(1)
                          for k in SCALE_LEAVES]).amax(0).double().clamp(min=1)
     sums = {v: k for k, v in COMPENSATION.items()}
@@ -763,18 +806,37 @@ def top(d: dict, n: int = 3) -> str:
                      sorted(d.items(), key=lambda kv: -kv[1])[:n])
 
 
+def random_state(rng, B: int, N: int, NC: int):
+    """A feasible random queue state of B sims on the CPU (dummy content
+    below the processed queue), as the port's policy tests make one."""
+    import numpy as np
+    from repro_torch.convert import net_state_from_numpy
+    Q = (rng.random((B, N, 3, NC)) * 6).astype(np.float32)
+    Q[rng.random(Q.shape) < 0.3] = 0.0
+    return net_state_from_numpy(dict(
+        Q=Q, Ddum=(Q[:, :, 0] * rng.random((B, N, NC)) * 0.5),
+        X=rng.random((B, NC, 2)) * 4, Y=rng.random((B, NC)) * 2,
+        H=rng.random((B, NC)) * 3, cum_arr=10 + rng.random((B, NC, 2)) * 5,
+        cum_comb=rng.random((B, NC)) * 8, delivered=np.full(B, 50.0),
+        delivered_useful=np.full(B, 45.0), delivered_c=np.zeros(B),
+        delivered_useful_c=np.zeros(B)), "cpu")
+
+
 def phase_reference(dev):
-    """The card against the port's plain path on the CPU (the kernels'
-    plain versions and in-order scatters), over REF_SLOTS slots of the
-    runner for all 1,512 sims of the main batch, from one random state,
-    with the engine's counter-based noise (the same on both devices).
+    """The card against the port's plain path on the CPU (the slot step's
+    plain version, in-order scatters), over REF_SLOTS slots of the runner
+    for all 1,512 sims of the main batch, from one random state, with the
+    engine's counter-based noise (the same on both devices).  On the card
+    the runner's slot step is the fused kernel.
 
     Teacher-forced: at every slot the card and the CPU step the same carry,
-    the CPU's.  Their decisions then come from bit-identical inputs through
-    bit-identical kernels (phase 2), so the two new carries may differ only
-    by the rounding of sums that run in another order on the card (the
-    sorted scatter-adds, the reductions): every non-float leaf equal, every
-    float leaf within 1e-5 as `carry_diff` scales it, at every slot.
+    the CPU's.  Their decisions then come from the same inputs through
+    kernels that decide as their plain versions (phase 2,
+    `phase_slot_step`), so the two new carries may differ only by the
+    rounding of sums that run in another order on the card (the fused
+    kernel's reductions, the engine's statistics): every non-float leaf
+    equal, every float leaf within 1e-5 as `carry_diff` scales it, at every
+    slot.
 
     Free-running: the card also steps its own carry alongside.  Reported,
     not gated: the first slot at which it parts from the CPU's by more than
@@ -782,28 +844,18 @@ def phase_reference(dev):
     before and decision-sized after means that slot's flip was a near-tie
     met with rounding-different inputs, not different dynamics."""
     import numpy as np
-    from repro_torch.convert import net_state_from_numpy
     from repro_torch.core.policies import PolicyConfig
     from repro_torch.fleet import engine
     t0 = time.perf_counter()
     jobs, inp = main_batch("cpu")
-    B, N, NC = len(jobs), N_MAIN, NC_MAIN
-    rng = np.random.default_rng(0)
-    Q = (rng.random((B, N, 3, NC)) * 6).astype(np.float32)
-    Q[rng.random(Q.shape) < 0.3] = 0.0
-    state0 = dict(
-        Q=Q, Ddum=(Q[:, :, 0] * rng.random((B, N, NC)) * 0.5),
-        X=rng.random((B, NC, 2)) * 4, Y=rng.random((B, NC)) * 2,
-        H=rng.random((B, NC)) * 3, cum_arr=10 + rng.random((B, NC, 2)) * 5,
-        cum_comb=rng.random((B, NC)) * 8, delivered=np.full(B, 50.0),
-        delivered_useful=np.full(B, 45.0), delivered_c=np.zeros(B),
-        delivered_useful_c=np.zeros(B))
+    state0 = random_state(np.random.default_rng(0), len(jobs), N_MAIN,
+                          NC_MAIN)
     runner = engine.make_stream_runner(
         PolicyConfig(name="pi3_reg", eps_b=EPS_B), T=T_MAIN,
         chunk=CHUNK_MAIN, verdict=engine.resolve_verdict(None, True))
     carry = runner.init_carry(inp.pp)
-    carry = engine.Carry(net_state_from_numpy(state0), carry.stats,
-                         carry.drift, carry.mod, carry.t)
+    carry = engine.Carry(state0, carry.stats, carry.drift, carry.mod,
+                         carry.t)
     inp_dev = on_device(inp, dev)
     free = on_device(carry, dev)
     worst_leaf, plain_leaf = {}, {}
@@ -829,8 +881,9 @@ def phase_reference(dev):
     free_note = (f"parted at slot {parted[0]} by {parted[1]:.3e} after "
                  f"{before:.3e} the slot before" if parted else
                  f"within {before:.3e} of the CPU's throughout")
-    log(f"reference: {REF_SLOTS} slots x {B} sims, card vs the port's CPU "
-        f"path from one random state, {time.perf_counter() - t0:.1f} s: "
+    log(f"reference: {REF_SLOTS} slots x {len(jobs)} sims, card vs the "
+        f"port's CPU path from one random state, "
+        f"{time.perf_counter() - t0:.1f} s: "
         f"teacher-forced, non-float leaves equal and scaled differences "
         f"at most {max(worst_leaf.values()):.3e} ({top(worst_leaf)}; "
         f"plain per-leaf differences {top(plain_leaf)}); free-running, "
@@ -839,19 +892,233 @@ def phase_reference(dev):
 
 def phase_wireless(dev):
     import numpy as np
+    import torch
     from repro_torch.fleet import FleetJob, policy_bound_exact, run_fleet
     bound = policy_bound_exact("wireless_grid", "pi3", EPS_B)
     jobs = [FleetJob("wireless_grid", "pi3", lam=f * bound, seed=s,
                      eps_b=EPS_B) for f in (0.3, 0.6) for s in (0, 1, 2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     res = run_fleet(jobs, T=512, chunk=128, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     useful = res.column("useful_rate")
     check(bool(np.isfinite(useful).all()), "wireless: non-finite metrics")
     check(bool((useful <= LP_TOL * bound).all()),
           f"wireless: useful {useful} above bound {bound}")
     check(bool((res.column("delivered_useful") > 0).all()),
           "wireless: nothing delivered")
-    log(f"wireless: 6 sims x 512 slots, useful rates {np.round(useful, 3)} "
-        f"vs bound {bound:.3f}")
+    log(f"wireless: 6 sims x 512 slots in {wall:.3f} s "
+        f"({wall / res.slot_steps * 1e3:.4f} ms per batched slot), useful "
+        f"rates {np.round(useful, 3)} vs bound {bound:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the fused slot step against its plain version
+# ---------------------------------------------------------------------------
+
+#: What `phase_slot_step` compares of one slot step: the new queue state
+#: and the slot's two decisions (Z [B, NC], n* [B] int32).  Made without
+#: annotations, so the script also loads as a module outside sys.modules.
+SlotOut = dataclasses.make_dataclass("SlotOut", ("state", "Z", "n_star"),
+                                     frozen=True)
+
+
+def step_case(row, B: int, seed: int):
+    """(pp, cfg, state) of a STEP_CASES row on the CPU: B copies of the
+    padded problem with comp nodes failed as the row says (through
+    `with_capacity_scales`), and B random states."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policies import PolicyConfig
+    from repro_torch.fleet.batching import PadDims, from_leaves, pad_leaves
+    from repro_torch.fleet.scenarios import get_scenario
+    scen, policy, pad_extra, fail, pairing = row
+    problem = get_scenario(scen).build(0)
+    dims = PadDims(problem.graph.n_nodes + pad_extra,
+                   problem.graph.n_edges + 2 * pad_extra,
+                   problem.n_comp + pad_extra)
+    pp = from_leaves([pad_leaves(problem, dims)] * B, dims.n_nodes,
+                     dims.n_comp, "cpu")
+    comp_scale = torch.tensor(
+        [0.0 if (fail >> (i % 3)) & 1 and i > 0 else 1.0
+         for i in range(dims.n_comp)]).expand(B, -1)
+    pp = pp.with_capacity_scales(torch.ones(B, dims.n_edges), comp_scale)
+    cfg = PolicyConfig(name=policy, eps_b=EPS_B, pairing=pairing,
+                       threshold=1.5, wireless=get_scenario(scen).wireless)
+    return pp, cfg, random_state(np.random.default_rng(seed), B,
+                                 dims.n_nodes, dims.n_comp)
+
+
+def slot_noise(rng, pp, lam):
+    """One slot's inputs for every sim, on the CPU: Poisson(lam) arrivals,
+    Bernoulli(EPS_B) regulator draws, and capacity scales (a link out with
+    probability 0.1, else at 0.5-1 of its rate; a comp node failed with
+    probability 0.1), applied to ``pp``."""
+    import numpy as np
+    import torch
+    B, E, NC = pp.batch, pp.n_edges, pp.n_comp
+    es = np.where(rng.random((B, E)) < 0.1, 0.0,
+                  0.5 + 0.5 * rng.random((B, E))).astype(np.float32)
+    cs = (rng.random((B, NC)) >= 0.1).astype(np.float32)
+    return (pp.with_capacity_scales(torch.from_numpy(es),
+                                    torch.from_numpy(cs)),
+            torch.from_numpy(rng.poisson(lam).astype(np.float32)),
+            torch.from_numpy((rng.random((B, NC)) < EPS_B)
+                             .astype(np.float32)),
+            torch.full((B,), EPS_B))
+
+
+def step_args(pp, cfg, state, arr, draws, eps, dev):
+    """The kernel-level arguments of one slot step on ``dev``: (state
+    leaves, problem leaves, arrivals, draws, eps), and the policy flags."""
+    from repro_torch.kernels.bp_slot import ref as R
+    args = ({k: getattr(state, k).to(dev) for k in R.STATE_LEAVES},
+            {k: getattr(pp, k).to(dev) for k in R.PROBLEM_LEAVES},
+            arr.to(dev), draws.to(dev) if cfg.use_regulator else None,
+            eps.to(dev))
+    return args, dict(load_balance=cfg.load_balance,
+                      fixed_node=cfg.fixed_node, regulated=cfg.use_regulator,
+                      pairing=cfg.pairing, thresholded=cfg.thresholded,
+                      threshold=cfg.threshold, wireless=cfg.wireless)
+
+
+def phase_slot_step(dev, peaks):
+    """The fused slot-step kernel against its plain version
+    (`slot_step_ref`: `ref.slot_step_plain` with B1 and B2 through their
+    wrappers) on the card, and against the plain version on the CPU:
+    STEP_SLOTS slots of the main batch (1,512 pi3_reg sims, one random
+    state, random link outages and comp failures every slot), then
+    STEP_CASE_SLOTS slots of STEP_CASE_B sims for each STEP_CASES row.
+
+    Teacher-forced: every slot, all three step the CPU's carry.  Gates,
+    against both: the decisions n* and Z and every non-float leaf equal bit
+    for bit, and every float leaf within 1e-5 as `carry_diff` scales it.
+    Also reported: per leaf, the share of values bit-identical to the
+    CPU's.  Then the device time of one launch of the fused kernel and of
+    one plain slot step on the card at the main batch."""
+    import numpy as np
+    import torch
+    from repro_torch.core.queues import NetState
+    from repro_torch.kernels.bp_slot import kernel as K
+    from repro_torch.kernels.bp_slot import ref as R
+    t_start = time.perf_counter()
+    jobs, inp = main_batch("cpu")
+    main_pp = inp.pp
+    rng = np.random.default_rng(1)
+    runs = [("main pi3_reg", main_pp, jobs[0].policy_config(),
+             random_state(rng, len(jobs), N_MAIN, NC_MAIN),
+             inp.lam.numpy(), STEP_SLOTS)]
+    for i, row in enumerate(STEP_CASES):
+        pp, cfg, state = step_case(row, STEP_CASE_B, seed=10 + i)
+        runs.append((f"{row[0]} {row[1]} {row[4]}", pp, cfg, state,
+                     np.full(STEP_CASE_B, 2.0), STEP_CASE_SLOTS))
+    decide = dict(route=K.slot_route_decide, balance=K.comp_balance_decide)
+    worst, max_err, launches, main_state = {}, 0.0, None, None
+    for name, pp0, cfg, state, lam, slots in runs:
+        same_bits = {}
+        if launches is None:
+            K.slot_route_decide.launches = K.comp_balance_decide.launches = 0
+            K.slot_step_fused.launches = 0
+        for t in range(slots):
+            pp, arr, draws, eps = slot_noise(rng, pp0, lam)
+            a_cpu, flags = step_args(pp, cfg, state, arr, draws, eps, "cpu")
+            a_dev, _ = step_args(pp, cfg, state, arr, draws, eps, dev)
+            outs = {}
+            for what, step, args, kw in (
+                    ("cpu", R.slot_step_plain, a_cpu, decide),
+                    ("card", R.slot_step_plain, a_dev, decide),
+                    ("fused", K.slot_step_fused, a_dev, {})):
+                new, m = step(*args, **flags, **kw)
+                outs[what] = SlotOut(NetState(**new), m["Z"], m["n_star"])
+            fused = on_device(outs["fused"], "cpu")
+            card = on_device(outs["card"], "cpu")
+            for ref_name, ref in (("card", card), ("CPU", outs["cpu"])):
+                scaled, plain, same = carry_diff(fused, ref)
+                check(same and max(scaled.values()) <= 1e-5,
+                      f"{name}, slot {t}: fused vs the plain slot step on "
+                      f"the {ref_name}: n* equal {same}; largest scaled "
+                      f"differences {top(scaled)}; plain {top(plain)}")
+                for k, v in scaled.items():
+                    worst[(ref_name, k)] = max(worst.get((ref_name, k), 0.0),
+                                               v)
+                check(bits_equal(fused.Z, ref.Z),
+                      f"{name}, slot {t}: fused Z differs from the plain "
+                      f"slot step's on the {ref_name}")
+            xa, xb = named_leaves(fused), named_leaves(outs["cpu"])
+            xc = named_leaves(card)
+            for k, y in xb.items():
+                x = xa[k]
+                eq = x.view(torch.int32) == y.view(torch.int32) \
+                    if y.is_floating_point() else x == y
+                same_bits[k] = same_bits.get(k, 0) + int(eq.sum())
+                if y.is_floating_point():
+                    max_err = max(max_err, float(
+                        (x.double() - xc[k].double()).abs().max()))
+            state = outs["cpu"].state
+        if launches is None:
+            torch.cuda.synchronize()
+            launches = {"bp_slot_step": K.slot_step_fused.launches,
+                        "slot_route_decide": K.slot_route_decide.launches,
+                        "comp_balance_decide": K.comp_balance_decide.launches}
+            check(launches == {"bp_slot_step": slots,
+                               "slot_route_decide": slots,
+                               "comp_balance_decide": 2 * slots},
+                  f"{name}: launches {launches} over {slots} slots")
+            main_state = state
+        total = {k: v.numel() * slots for k, v in xb.items()}
+        log(f"slot step, {name}: {slots} slots x {pp0.batch} sims gated; "
+            f"bit-identical to the CPU's plain path: " +
+            ", ".join(f"{k} {same_bits[k] / total[k]:.4f}"
+                      for k in total))
+    log("slot step: largest scaled differences, vs the card / vs the CPU: "
+        + ", ".join(f"{k} {worst[('card', k)]:.3e} / "
+                    f"{worst[('CPU', k)]:.3e}"
+                    for k in sorted({k for _, k in worst})))
+
+    # Timing at the main batch, from its last carry.
+    _, pp0, cfg, _, lam, _ = runs[0]
+    pp, arr, draws, eps = slot_noise(rng, pp0, lam)
+    args, flags = step_args(pp, cfg, main_state, arr, draws, eps, dev)
+    new, m = K.slot_step_fused(*args, **flags)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 [*args[0].values(), *args[1].values(), *args[2:],
+                  *new.values(), m["total_queue"], m["routed"],
+                  m["computed"], m["Z"], m["n_star"]] if t is not None)
+    B, N, NC, E = pp.batch, pp.n_nodes, pp.n_comp, pp.n_edges
+    C, QK = 3 * NC, N * 3 * NC
+    # Operations per sim, counted from the kernel's phases: the B1 fold (3
+    # per class per link), the allocation and the caps (~20 per link), the
+    # scatters and sums (one add per queue entry and per update), the
+    # load-balance and combine decisions (~20 per comp node).
+    nops = B * (3 * C * E + 20 * E + 2 * QK + 4 * E + 20 * NC)
+    row = dict(
+        name="bp_slot_step", route="cuda",
+        source="src/repro_torch/kernels/bp_slot/csrc/bp_slot_step.cu",
+        replaces="src/repro/kernels/bp_slot/kernel.py:59, "
+                 "src/repro/kernels/bp_slot/kernel.py:138",
+        max_abs_err=max_err,
+        ms=device_ms(lambda: K.slot_step_fused(*args, **flags),
+                     match="bp_slot_step_kernel"),
+        wall_ms=wall_ms(lambda: K.slot_step_fused(*args, **flags)),
+        plain_ms=device_ms(lambda: R.slot_step_plain(*args, **flags,
+                                                     **decide), n=20, warm=3),
+        plain_wall_ms=wall_ms(lambda: R.slot_step_plain(*args, **flags,
+                                                        **decide),
+                              n=20, warm=3),
+        library_ms=None, bytes=nbytes, ops=nops,
+        smem=K.slot_step_smem_bytes(N, NC, E))
+    row["bound_ms"], row["bound_by"] = bound_of(nbytes, nops, peaks)
+    log(f"kernel bp_slot_step at B={B}, N={N}, NC={NC}, E={E}: "
+        f"{row['ms']:.6f} ms of device time per launch "
+        f"({row['wall_ms']:.6f} ms between host events), bound "
+        f"{row['bound_ms'] * 1e3:.4f} us by {row['bound_by']} "
+        f"({nbytes} B, {nops} ops), {row['smem']} B of shared memory per "
+        f"block; the plain slot step on the card {row['plain_ms']:.6f} ms "
+        f"of device time per slot ({row['plain_wall_ms']:.6f} ms between "
+        f"host events); max_abs_err against it {max_err:.3e}; phase "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return row, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1755,6 +2022,14 @@ def main() -> int:
     rows["flash_attention"] = phase_flash(dev, peaks)
     res, jobs, launches, wall = phase_main(dev)
     phase_profile(dev, wall / res.slot_steps * 1e3)
+    rows["bp_slot_step"], plain_launches = phase_slot_step(dev, peaks)
+    # B1 and B2 run on the plain slot step's path only (0 launches in the
+    # fleet run, phase_main checks); their launches are that path's.
+    for k in ("slot_route_decide", "comp_balance_decide"):
+        launches[k] = plain_launches[k]
+        rows[k]["path"] = ("core.policies.slot_step_ref on the card, "
+                           f"{STEP_SLOTS} slots (phase_slot_step)")
+    rows["bp_slot_step"]["path"] = "run_fleet (phase_main)"
     phase_reference(dev)
     phase_determinism(dev, res, jobs)
     phase_wireless(dev)
@@ -1774,8 +2049,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # A plain version timed at another shape than the kernel says which;
     # flash attention also names its kernel and the CUDA-core kernel's
-    # float32 time.
-    shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms")
+    # float32 time; the bp_slot kernels name the path that launched them.
+    shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms", "path")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}
     for r in table["kernels"]:

@@ -4,7 +4,9 @@ What has to match the reference are the problem constants, the queue
 state and, for the models, the weights.  A caller (the parity tests) turns
 the reference's objects into dicts of numpy arrays with `np.asarray`, and
 these functions build the port's tensors from them — the port itself never
-sees a jax object.
+sees a jax object.  Like every entry point they put their tensors on CUDA
+unless the caller passes ``device`` (`repro_torch.device.resolve_device`),
+and raise without a card.
 """
 from __future__ import annotations
 
@@ -14,12 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.queues import NetState
+from repro_torch.device import resolve_device
 from repro_torch.fleet.batching import LEAVES, PaddedProblem
-
-#: NetState fields, in order.
-STATE_FIELDS = ("Q", "Ddum", "X", "Y", "H", "cum_arr", "cum_comb",
-                "delivered", "delivered_useful", "delivered_c",
-                "delivered_useful_c")
+from repro_torch.kernels.bp_slot.ref import STATE_LEAVES as STATE_FIELDS
 
 #: Leaf -> rank of one unbatched problem's leaf.
 _PROBLEM_RANK = {"edges": 2, "edge_cap": 1, "s1": 0, "s2": 0, "dest": 0,
@@ -47,9 +46,10 @@ def padded_problem_from_numpy(leaves: Dict[str, np.ndarray], n_nodes: int,
     missing = set(LEAVES) - set(leaves)
     if missing:
         raise KeyError(f"missing problem leaves: {sorted(missing)}")
+    dev = resolve_device(device)
     return PaddedProblem(n_nodes=int(n_nodes), n_comp=int(n_comp), **{
         k: torch.as_tensor(np.array(_batched(k, leaves[k], _PROBLEM_RANK[k])),
-                           device=device)
+                           device=dev)
         for k in LEAVES})
 
 
@@ -59,9 +59,10 @@ def net_state_from_numpy(d: Dict[str, np.ndarray], device=None) -> NetState:
     missing = set(STATE_FIELDS) - set(d)
     if missing:
         raise KeyError(f"missing state fields: {sorted(missing)}")
+    dev = resolve_device(device)
     return NetState(**{
         k: torch.as_tensor(_batched(k, d[k], _STATE_RANK[k]).astype(
-            np.float32), device=device)
+            np.float32), device=dev)
         for k in STATE_FIELDS})
 
 
@@ -74,6 +75,10 @@ def params_from_numpy(tree, device=None):
     """A model's parameters from the reference's value tree (after
     `split_tree`) with every leaf turned into a numpy array: nested dicts
     of tensors of the same names, shapes and dtypes, on ``device``."""
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree), device=device)
+    dev = resolve_device(device)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        return torch.as_tensor(np.array(t), device=dev)
+    return build(tree)

@@ -4,13 +4,13 @@ from .graph import (Graph, ComputeProblem, grid_graph, line_graph,
 from .capacity import capacity_upper_bound, CapacityResult
 from .queues import (DriftStats, NetState, StaticProblem, init_state,
                      kahan_add, drift_verdict_update)
-from .policies import PolicyConfig, slot_step, bp_route_slot, computation_slot
+from .policies import PolicyConfig, slot_step, slot_step_ref
 from .regulator import regulator_push
 
 __all__ = [
     "Graph", "ComputeProblem", "grid_graph", "line_graph", "triangle_graph",
     "paper_grid_problem", "capacity_upper_bound", "CapacityResult",
     "DriftStats", "NetState", "StaticProblem", "init_state", "kahan_add",
-    "drift_verdict_update", "PolicyConfig", "slot_step", "bp_route_slot",
-    "computation_slot", "regulator_push",
+    "drift_verdict_update", "PolicyConfig", "slot_step", "slot_step_ref",
+    "regulator_push",
 ]

@@ -18,9 +18,11 @@ State components (paper notation, per simulation b):
   delivered / delivered_useful : [B] cumulative processed packets at d
 
 The delivery counters are compensated (Kahan) float32 sums, updated only
-through `NetState.credit_delivery`.  They are plain eager float32 ops; a
-later change that fuses or compiles them must keep the compensation term
-alive (the reference guards it in `tests/test_fleet.py`).
+by the slot step: `kahan_add` in its plain version, the same three
+operations in the fused kernel (`bp_slot_step.cu`, built with -fmad=false,
+which keeps the compensation term alive; the reference guards it in
+`tests/test_fleet.py`).  `kahan_add` is defined beside the plain slot step;
+`repro_torch.kernels.bp_slot.ref` says why.
 """
 from __future__ import annotations
 
@@ -29,14 +31,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels.bp_slot.ref import kahan_add  # noqa: F401
+
 from .graph import ComputeProblem
-
-
-def kahan_add(s: torch.Tensor, c: torch.Tensor, x: torch.Tensor):
-    """One compensated-summation step: returns (new_sum, new_compensation)."""
-    y = x - c
-    t = s + y
-    return t, (t - s) - y
 
 
 # ---------------------------------------------------------------------------
@@ -125,24 +122,6 @@ class NetState:
     delivered_useful: torch.Tensor   # [B]
     delivered_c: torch.Tensor        # [B] Kahan compensation of `delivered`
     delivered_useful_c: torch.Tensor  # [B] ... and of `delivered_useful`
-
-    def replace(self, **kw) -> "NetState":
-        return dataclasses.replace(self, **kw)
-
-    def total_queue(self) -> torch.Tensor:
-        """[B] total backlog tracked for stability (paper §II-D)."""
-        B = self.Q.shape[0]
-        return (self.Q.reshape(B, -1).sum(1) + self.X.reshape(B, -1).sum(1)
-                + self.Y.sum(1))
-
-    def credit_delivery(self, dlv: torch.Tensor,
-                        dlv_useful: torch.Tensor) -> "NetState":
-        """Compensated update of the cumulative delivery counters."""
-        d, dc = kahan_add(self.delivered, self.delivered_c, dlv)
-        du, duc = kahan_add(self.delivered_useful, self.delivered_useful_c,
-                            dlv_useful)
-        return self.replace(delivered=d, delivered_c=dc,
-                            delivered_useful=du, delivered_useful_c=duc)
 
 
 @dataclasses.dataclass(frozen=True)

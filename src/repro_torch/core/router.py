@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class RouterState(NamedTuple):
     H: torch.Tensor          # [E] virtual admission queues (float32)
@@ -32,10 +34,12 @@ class RouterState(NamedTuple):
 
 
 def init_router_state(n_experts: int, device=None) -> RouterState:
+    """Zero queues on ``device``: CUDA unless asked, raising without a card
+    (`repro_torch.device.resolve_device`)."""
+    dev = resolve_device(device)
     return RouterState(H=torch.zeros((n_experts,), dtype=torch.float32,
-                                     device=device),
-                       steps=torch.zeros((), dtype=torch.int32,
-                                         device=device))
+                                     device=dev),
+                       steps=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,10 +20,8 @@ import torch
 
 from repro_torch.core.graph import ComputeProblem
 from repro_torch.core.queues import StaticProblem
-
-#: Tensor leaves of a `PaddedProblem`, in field order.
-LEAVES = ("edges", "edge_cap", "s1", "s2", "dest", "comp_nodes",
-          "comp_caps", "sink", "edge_mask", "comp_mask")
+from repro_torch.device import resolve_device
+from repro_torch.kernels.bp_slot.ref import PROBLEM_LEAVES as LEAVES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,10 +184,13 @@ def pad_leaves(problem: ComputeProblem, dims: PadDims) -> Dict[str, np.ndarray]:
 
 def from_leaves(leaves: Sequence[Dict[str, np.ndarray]], n_nodes: int,
                 n_comp: int, device=None) -> PaddedProblem:
-    """Stack per-problem numpy leaves into one batched PaddedProblem."""
+    """Stack per-problem numpy leaves into one batched PaddedProblem on
+    ``device``: CUDA unless the caller asks (`resolve_device`), raising
+    without a card."""
+    dev = resolve_device(device)
     return PaddedProblem(n_nodes=n_nodes, n_comp=n_comp, **{
         k: torch.as_tensor(np.stack([np.asarray(lv[k]) for lv in leaves]),
-                           device=device)
+                           device=dev)
         for k in LEAVES})
 
 

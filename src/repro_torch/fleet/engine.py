@@ -39,9 +39,9 @@ from repro_torch.core.graph import ComputeProblem
 from repro_torch.core.policies import PolicyConfig, slot_step
 from repro_torch.core.queues import (DriftStats, NetState, VERDICT_NAMES,
                                      VERDICT_STABLE, VERDICT_UNDECIDED,
-                                     drift_verdict_update, init_state,
-                                     kahan_add)
+                                     drift_verdict_update, init_state)
 from repro_torch.device import resolve_device, tree_leaves
+from repro_torch.kernels.bp_slot.ref import kahan_add
 from repro_torch.sim import workload
 from .batching import PadDims, PaddedProblem, from_leaves, pad_leaves
 from .scenarios import (ARRIVAL_MODEL_ORDER, ARRIVAL_MODELS,

@@ -8,19 +8,20 @@ Each `csrc/*.cu` file becomes one shared library with a plain C interface
 
 where ``<flags>`` are the source's own (`SOURCE_FLAGS`, by file name):
 
-  * ``bp_slot.cu``, ``bp_topk.cu``, ``bp_route.cu``: ``-fmad=false``, and
-    no ``--use_fast_math``.  Both are part of these kernels' bit-exactness
-    contract: their plain versions spell every rounding, and a contracted
-    multiply-add would round once where they round twice (see the
-    sources).
+  * ``bp_slot.cu``, ``bp_slot_step.cu``, ``bp_topk.cu``, ``bp_route.cu``:
+    ``-fmad=false``, and no ``--use_fast_math``.  Both are part of these
+    kernels' bit-exactness contract: their plain versions spell every
+    rounding, and a contracted multiply-add would round once where they
+    round twice (see the sources).
   * ``flash_attention.cu``, ``flash_attention_sm90.cu``: none but
     ``-Xptxas -v`` (registers, shared memory and spills, kept in the
     build log).  Flash attention agrees with its plain version to
     rounding, not bit for bit, so its multiply-adds may fuse.
 
 Libraries go to ``build/repro_torch/`` at the checkout's root (listed in
-.gitignore), named by a hash of the source and its flags, so an edited
-source or flag is rebuilt and an unchanged one is reused; nvcc's output
+.gitignore), named by a hash of the source, the headers (``*.cuh``) of its
+directory and its flags, so an edited source, header or flag is rebuilt
+and an unchanged one is reused; nvcc's output
 goes beside it as ``<name>-<hash>.log``.  Nothing is built when a module
 is imported: `load` builds at a kernel's first CUDA call, and `build_all`
 builds every source up front, one nvcc per source, all at once.
@@ -46,6 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Each source's flags beside NVCC_FLAGS, by file name (see the docstring).
 SOURCE_FLAGS = {
     "bp_slot.cu": ("-fmad=false",),
+    "bp_slot_step.cu": ("-fmad=false",),
     "bp_topk.cu": ("-fmad=false",),
     "bp_route.cu": ("-fmad=false",),
     "flash_attention.cu": ("-Xptxas", "-v"),
@@ -84,6 +86,8 @@ def flags(src: pathlib.Path) -> tuple:
 
 def library_path(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(flags(src)).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -5,6 +5,9 @@
 // launch (the JAX engine gets its batch from vmap; one launch per sim would
 // be 1,512 launches per slot at the atlas width).
 //
+// The decisions themselves are device functions in bp_slot_decide.cuh,
+// shared with the fused slot step (bp_slot_step.cu).
+//
 // Build rules that keep the kernels bit-identical to the plain PyTorch
 // versions in ref.py (which evaluate in the JAX package's order):
 //   * no --use_fast_math: it implies -ftz=true, and a flushed denormal
@@ -23,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bp_slot_decide.cuh"
 
 // ---------------------------------------------------------------------------
 // slot_route_decide
@@ -53,17 +58,10 @@ __global__ void slot_route_decide_kernel(const float* __restrict__ qf,
   if (g >= (int64_t)B * E) return;
   int64_t b = g / E;
   const float* q = qf + b * (int64_t)N * C;
-  const float* qm = q + (int64_t)m_idx[g] * C;
-  const float* ql = q + (int64_t)l_idx[g] * C;
-  float best_d = __fsub_rn(qm[0], ql[0]);
-  int best = 0;
-  for (int c = 1; c < C; ++c) {
-    float d = __fsub_rn(qm[c], ql[c]);
-    if (fabsf(d) > fabsf(best_d)) {     // strictly greater: first wins ties
-      best_d = d;
-      best = c;
-    }
-  }
+  int best;
+  float best_d;
+  bp_route_fold(q + (int64_t)m_idx[g] * C, q + (int64_t)l_idx[g] * C, C,
+                &best, &best_d);
   best_out[g] = best;
   dmax_out[g] = best_d;
 }
@@ -112,32 +110,12 @@ __global__ void comp_balance_decide_kernel(const float* __restrict__ eps,
   float best_s = INFINITY;
   int best = 0;
   for (int n = 0; n < NC; ++n) {
-    float capm = __fmul_rn(caps[n], mask[n]);
-    float P;
-    if (pairing_bound) {
-      P = __fdiv_rn(__fsub_rn(__fadd_rn(x1[n], x2[n]), xnet[n]), 2.0f);
-    } else {
-      P = __fsub_rn(fminf(ca1[n], ca2[n]), cc[n]);
-    }
-    P = fminf(fmaxf(P, 0.0f), fminf(x1[n], x2[n]));
-    float Z;
-    if (thresholded) {
-      float xsum = __fadd_rn(x1[n], x2[n]);
-      float bar = __fadd_rn(__fmul_rn(2.0f, capm), threshold);
-      Z = fminf(xsum >= bar ? capm : 0.0f, P);
-    } else {
-      Z = fminf(P, capm);
-    }
-    z_out[(int64_t)b * NC + n] = Z;
-    float s = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(one_eps, q0[n]), q1[n]),
-                                  q2[n]), H[n]);
-    if (!(mask[n] > 0.0f)) s = INFINITY;
-    if (n == 0) {
-      best_s = s;
-    } else if (s < best_s) {            // strictly smaller: first wins ties
-      best_s = s;
-      best = n;
-    }
+    z_out[(int64_t)b * NC + n] = bp_combine_amount(
+        caps[n], mask[n], x1[n], x2[n], ca1[n], ca2[n], cc[n], xnet[n],
+        pairing_bound, thresholded, threshold);
+    bp_argmin_step(n, bp_balance_score(one_eps, q0[n], q1[n], q2[n], H[n],
+                                       mask[n]),
+                   &best_s, &best);
   }
   nstar_out[b] = best;
 }

@@ -1,8 +1,8 @@
 """The port's per-source nvcc flags (`repro_torch.kernels._build`).
 
 No nvcc is needed: these tests read the flag table and the library names
-it hashes.  B1-B4's bit-exactness contract rests on ``-fmad=false`` and on
-the absence of fast math; flash attention has no such contract and must
+it hashes.  The bit-exactness contract of B1-B4 and of the fused slot step
+rests on ``-fmad=false`` and on the absence of fast math; flash attention has no such contract and must
 not carry the flag.
 """
 import pathlib
@@ -13,7 +13,7 @@ pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 
-EXACT = ("bp_slot.cu", "bp_topk.cu", "bp_route.cu")
+EXACT = ("bp_slot.cu", "bp_slot_step.cu", "bp_topk.cu", "bp_route.cu")
 FLASH = ("flash_attention.cu", "flash_attention_sm90.cu")
 
 
@@ -58,3 +58,19 @@ def test_library_name_follows_the_flags(name, monkeypatch):
 def test_unknown_source_has_no_flags():
     with pytest.raises(KeyError):
         _build.flags(pathlib.Path("kernels/x/csrc/new_kernel.cu"))
+
+
+def test_library_name_follows_the_headers(tmp_path):
+    """A source's library is named by the headers beside it too: the fused
+    slot step and bp_slot.cu share bp_slot_decide.cuh, and an edit there
+    must rebuild both."""
+    src = tmp_path / "bp_slot_step.cu"
+    src.write_text("// source")
+    header = tmp_path / "bp_slot_decide.cuh"
+    header.write_text("// v1")
+    before = _build.library_path(src)
+    header.write_text("// v2")
+    assert _build.library_path(src) != before
+    shared = [s for s in _build.sources()
+              if (s.parent / "bp_slot_decide.cuh").is_file()]
+    assert sorted(s.name for s in shared) == ["bp_slot.cu", "bp_slot_step.cu"]

@@ -58,7 +58,7 @@ def test_pad_problem_and_buckets_match_for_every_scenario():
         (tdims.n_nodes, tdims.n_edges, tdims.n_comp)
     for (jp, tp) in problems.values():
         jpad = jfleet.pad_problem(jp, jdims)
-        tpad = tfleet.pad_problem(tp, tdims)
+        tpad = tfleet.pad_problem(tp, tdims, "cpu")
         for k in LEAVES:
             np.testing.assert_array_equal(getattr(tpad, k).numpy()[0],
                                           np.asarray(getattr(jpad, k)),
@@ -76,7 +76,7 @@ def _pp_pair(name, seed=0):
     dims = jfleet.PadDims.of([jp])
     tpp = tfleet.pad_problem(tfleet.get_scenario(name).build(seed),
                              tfleet.PadDims(dims.n_nodes, dims.n_edges,
-                                            dims.n_comp))
+                                            dims.n_comp), "cpu")
     return jfleet.pad_problem(jp, dims), tpp
 
 
@@ -176,7 +176,7 @@ def test_whole_run_matches_reference(policy):
     # The port runs both scenarios as one padded batch.
     problems = [tfleet.get_scenario(s).build(0) for s in scens]
     dims = tfleet.PadDims.of(problems)
-    pp = tfleet.stack_problems(problems, dims)
+    pp = tfleet.stack_problems(problems, dims, "cpu")
     reg = np.zeros((2, T, dims.n_comp), np.float32)
     for b, (p, seed) in enumerate(zip(problems, seeds)):
         reg[b, :, :p.n_comp] = _jax_regulator_bits(seed, T, p.n_comp, eps)
@@ -267,13 +267,13 @@ def test_early_stop_leaves_undecided_sims_bit_equal():
 
 
 def test_card_scatter_order_changes_only_rounding(monkeypatch):
-    """On the card, `_scatter_add` sums each index's updates and then adds
-    the base; on the CPU it adds them to the base in order.  Emulated here,
-    that order must pass `chip_smoke.py`'s teacher-forced card-vs-CPU gate
-    at every slot: non-float leaves equal, float leaves within 1e-5 as
-    `carry_diff` scales them."""
+    """On the card, the plain slot step's `scatter_add` sums each index's
+    updates and then adds the base; on the CPU it adds them to the base in
+    order.  Emulated here, that order must pass `chip_smoke.py`'s
+    teacher-forced card-vs-CPU gate at every slot: non-float leaves equal,
+    float leaves within 1e-5 as `carry_diff` scales them."""
     import importlib.util
-    from repro_torch.core import policies as tpol
+    from repro_torch.kernels.bp_slot import ref as tref
     from repro_torch.fleet.batching import from_leaves, pad_leaves
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -295,16 +295,16 @@ def test_card_scatter_order_changes_only_rounding(monkeypatch):
          for j in jobs], [j.seed for j in jobs])
     runner = tengine.make_stream_runner(PolicyConfig("pi3_reg", eps_b=0.05),
                                         T=1024, chunk=256)
-    in_order = tpol._scatter_add
+    in_order = tref.scatter_add
 
     def summed_first(base, idx, vals):
         return base + in_order(torch.zeros_like(base), idx, vals)
 
     carry = runner.init_carry(pp)
     for t in range(96):
-        monkeypatch.setattr(tpol, "_scatter_add", summed_first)
+        monkeypatch.setattr(tref, "scatter_add", summed_first)
         card = runner.slot(inp, carry)
-        monkeypatch.setattr(tpol, "_scatter_add", in_order)
+        monkeypatch.setattr(tref, "scatter_add", in_order)
         carry = runner.slot(inp, carry)
         scaled, _, same = smoke.carry_diff(card, carry)
         assert same and max(scaled.values()) <= 1e-5, (t, scaled)

@@ -57,7 +57,7 @@ def jax_params(jcfg, seed=1):
 def moe_params(jcfg, seed=1):
     values, _ = jsplit(jmoe.init_moe(jcfg, jcommon.Init(
         key=jax.random.key(seed))))
-    return values, params_from_numpy(to_numpy(values))
+    return values, params_from_numpy(to_numpy(values), "cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +213,7 @@ def test_moe_ffn_matches_reference(dropless, capacity_factor):
 def test_lm_decode_step_matches_reference_over_8_steps(arch):
     tcfg, jcfg = configs(arch)
     jparams = jax_params(jcfg)
-    tparams = params_from_numpy(to_numpy(jparams))
+    tparams = params_from_numpy(to_numpy(jparams), "cpu")
     B, max_len = 3, 16
     japi, tapi = jget_model(jcfg), get_model(tcfg)
     jc = japi.init_decode(B, max_len, jnp.float32)
@@ -244,7 +244,7 @@ def test_lm_decode_step_matches_reference_over_8_steps(arch):
 def test_engine_emits_the_references_tokens():
     tcfg, jcfg = configs("granite-moe-1b-a400m")
     jparams = jax_params(jcfg, seed=0)
-    tparams = params_from_numpy(to_numpy(jparams))
+    tparams = params_from_numpy(to_numpy(jparams), "cpu")
     jeng = JEngine(jcfg, jparams, slots=2, max_len=64)
     teng = tserve.Engine(tcfg, tparams, slots=2, max_len=64, device="cpu")
     rng = np.random.default_rng(0)

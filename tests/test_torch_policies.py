@@ -26,21 +26,7 @@ from repro_torch.convert import (STATE_FIELDS, net_state_from_numpy,  # noqa: E4
 from repro_torch.core.graph import ComputeProblem, Graph  # noqa: E402
 from repro_torch.core.policies import PolicyConfig, slot_step  # noqa: E402
 from repro_torch.fleet.batching import LEAVES  # noqa: E402
-
-
-def random_state(rng, N, NC):
-    """A feasible random queue state (dummy content <= processed queue)."""
-    Q = (rng.random((N, 3, NC)) * 6).astype(np.float32)
-    Q[rng.random((N, 3, NC)) < 0.3] = 0.0
-    return dict(
-        Q=Q, Ddum=(Q[:, 0, :] * rng.random((N, NC)) * 0.5).astype(np.float32),
-        X=(rng.random((NC, 2)) * 4).astype(np.float32),
-        Y=(rng.random(NC) * 2).astype(np.float32),
-        H=(rng.random(NC) * 3).astype(np.float32),
-        cum_arr=(10 + rng.random((NC, 2)) * 5).astype(np.float32),
-        cum_comb=(rng.random(NC) * 8).astype(np.float32),
-        delivered=np.float32(50.0), delivered_useful=np.float32(45.0),
-        delivered_c=np.float32(0.0), delivered_useful_c=np.float32(0.0))
+from test_torch_bp_slot import CASES, random_state  # noqa: E402
 
 
 def run_both(jp, cfg_kw, state0, arrivals, seed, eps_b=0.05):
@@ -49,11 +35,11 @@ def run_both(jp, cfg_kw, state0, arrivals, seed, eps_b=0.05):
     both, as numpy."""
     tp = padded_problem_from_numpy(
         {k: np.asarray(getattr(jp, k)) for k in LEAVES}, jp.n_nodes,
-        jp.n_comp)
+        jp.n_comp, "cpu")
     jcfg = JConfig(**cfg_kw)
     tcfg = PolicyConfig(**cfg_kw)
     js = JState(**{k: jnp.asarray(v) for k, v in state0.items()})
-    ts = net_state_from_numpy(state0)
+    ts = net_state_from_numpy(state0, "cpu")
     key = jax.random.key(seed)
     jrun = jax.jit(lambda s, a, k: jstep(jp, jcfg, s, a, k,
                                          eps_b=jnp.float32(eps_b)))
@@ -75,19 +61,6 @@ def assert_close(jst, tst, rtol):
     for k in STATE_FIELDS:
         np.testing.assert_allclose(tst[k], jst[k], rtol=rtol, atol=rtol,
                                    err_msg=k)
-
-
-CASES = [
-    # scen, policy, pad_extra, fail_pattern, pairing
-    ("paper_grid", "pi3", 2, 5, "fifo"),
-    ("paper_grid", "pi3_reg", 0, 0, "bound"),
-    ("paper_grid", "pi1", 1, 0, "fifo"),
-    ("paper_grid", "pi1p", 0, 0, "fifo"),
-    ("ring", "pi3bar", 3, 3, "fifo"),
-    ("ring", "pi2", 1, 0, "bound"),
-    ("fat_tree", "pi3", 1, 6, "fifo"),
-    ("wireless_grid", "pi3", 0, 0, "fifo"),
-]
 
 
 @pytest.mark.parametrize("scen,policy,pad_extra,fail,pairing", CASES)
@@ -137,3 +110,45 @@ def test_scatter_collision_two_edges_one_queue():
     # 3 packets split over two 5-capacity links: all leave, none is made
     assert tst["Q"][0, 1, 0] == 0.0
     assert tst["Q"][1, 1, 0] + tst["Q"][2, 1, 0] == pytest.approx(3.0)
+
+
+def test_convert_and_router_state_default_to_cuda(monkeypatch):
+    """The numpy converters, the padded-problem builders and
+    `init_router_state` resolve their device like every other entry point:
+    CUDA unless asked, raising without a card."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.router import init_router_state
+    from repro_torch.fleet import (PadDims, get_scenario, pad_problem,
+                                   stack_problems)
+    from repro_torch.fleet.batching import from_leaves, pad_leaves
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    problem = jscenario("paper_grid").build(0)
+    jp = jpad(problem, JDims.of([problem]))
+    leaves = {k: np.asarray(getattr(jp, k)) for k in LEAVES}
+    state0 = random_state(np.random.default_rng(0), jp.n_nodes, jp.n_comp)
+    params = {"w": np.ones((2, 3), np.float32), "sub": {"b": np.zeros(3)}}
+    calls = {
+        "padded_problem_from_numpy": lambda **kw: padded_problem_from_numpy(
+            leaves, jp.n_nodes, jp.n_comp, **kw).edges,
+        "net_state_from_numpy": lambda **kw: net_state_from_numpy(
+            state0, **kw).Q,
+        "params_from_numpy": lambda **kw: params_from_numpy(
+            params, **kw)["sub"]["b"],
+        "init_router_state": lambda **kw: init_router_state(8, **kw).H,
+    }
+    tproblems = [get_scenario(name).build(0)
+                 for name in ("paper_grid", "ring")]
+    dims = PadDims.of(tproblems)
+    calls.update({
+        "from_leaves": lambda **kw: from_leaves(
+            [pad_leaves(p, dims) for p in tproblems], dims.n_nodes,
+            dims.n_comp, **kw).edges,
+        "pad_problem": lambda **kw: pad_problem(
+            tproblems[0], dims, **kw).sink,
+        "stack_problems": lambda **kw: stack_problems(
+            tproblems, dims, **kw).comp_caps,
+    })
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        assert call(device="cpu").device.type == "cpu", name

@@ -60,7 +60,7 @@ def weights(jcfg, seed=1):
     """(reference params, the same params as the port's tensors)."""
     values, _ = jsplit(jget_model(jcfg).init(key=jax.random.key(seed)))
     return values, params_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                            values))
+                                                            values), "cpu")
 
 
 def router_H(cfg, seed=2):

@@ -30,7 +30,7 @@ def test_route_matches_jax_over_10_steps(mode, beta, T, E, k):
     rng = np.random.default_rng(T + E)
     kw = dict(n_experts=E, k=k, mode=mode, beta=beta)
     tcfg, jcfg = RouterConfig(**kw), jrouter.RouterConfig(**kw)
-    ts, js = init_router_state(E), jrouter.init_router_state(E)
+    ts, js = init_router_state(E, "cpu"), jrouter.init_router_state(E)
     for _ in range(10):
         logits = skewed_logits(rng, T, E)
         tout = route(tcfg, ts, torch.from_numpy(logits))
@@ -64,7 +64,8 @@ def test_plain_router_collapses_backpressure_balances():
     E, T, k = 16, 512, 2
     cfg_bp = RouterConfig(n_experts=E, k=k, mode="backpressure", beta=2.0)
     cfg_pl = RouterConfig(n_experts=E, k=k, mode="plain")
-    state_bp, state_pl = init_router_state(E), init_router_state(E)
+    state_bp, state_pl = (init_router_state(E, "cpu"),
+                          init_router_state(E, "cpu"))
     loads_bp, loads_pl = [], []
     for _ in range(30):
         logits = torch.from_numpy(skewed_logits(rng, T, E))
@@ -86,7 +87,7 @@ def test_h_queue_update_rule():
     cfg = RouterConfig(n_experts=E, k=k, mode="backpressure", beta=0.0)
     logits = torch.full((T, E), -10.0)
     logits[:, 2] = 10.0                                  # all to expert 2
-    out = route(cfg, init_router_state(E), logits)
+    out = route(cfg, init_router_state(E, "cpu"), logits)
     expected = np.zeros(E)
     expected[2] = T - T * k / E
     np.testing.assert_allclose(out.new_state.H.numpy(), expected, atol=1e-5)
@@ -96,7 +97,7 @@ def test_combine_weights_normalized_and_from_gates():
     cfg = RouterConfig(n_experts=8, k=3, mode="backpressure", beta=1.0)
     logits = torch.from_numpy(
         np.random.default_rng(1).standard_normal((32, 8)).astype(np.float32))
-    out = route(cfg, init_router_state(8), logits)
+    out = route(cfg, init_router_state(8, "cpu"), logits)
     np.testing.assert_allclose(out.combine_w.sum(1).numpy(), 1.0, atol=1e-5)
     assert (out.combine_w >= 0).all()
 
@@ -104,7 +105,7 @@ def test_combine_weights_normalized_and_from_gates():
 def test_aux_mode_has_differentiable_loss():
     cfg = RouterConfig(n_experts=8, k=2, mode="aux", aux_coef=0.01)
     logits = (torch.ones((16, 8)) * 0.1).requires_grad_(True)
-    (g,) = torch.autograd.grad(route(cfg, init_router_state(8),
+    (g,) = torch.autograd.grad(route(cfg, init_router_state(8, "cpu"),
                                      logits).aux_loss, logits)
     assert torch.isfinite(g).all()
 
@@ -114,7 +115,7 @@ def test_bias_affects_selection_not_weights():
     # combine weights are still the renormalized raw gates of the selected.
     E, k = 4, 1
     cfg = RouterConfig(n_experts=E, k=k, mode="backpressure", beta=100.0)
-    state = init_router_state(E)._replace(
+    state = init_router_state(E, "cpu")._replace(
         H=torch.tensor([0.0, 0.0, 1e6, 0.0]))
     logits = torch.tensor([[0.0, 1.0, 5.0, 0.5]]).repeat(10, 1)
     out = route(cfg, state, logits)
