@@ -18,7 +18,13 @@ on failure:
      tie-heavy inputs, outputs bit-identical, device times beside each
      kernel's bound: bp_slot at the fleet path's shapes (B=1512 sims, N=16,
      C=12, E=51, NC=4); bp_topk at the serve path's decode shape (T=4,
-     E=32, k=8) and at (8, 32, 8), (1024, 64, 6), (4096, 32, 8);
+     E=32, k=8) and at (8, 32, 8), (1024, 64, 6), (4096, 32, 8), and once
+     through its entry point `bp_topk_op` (its path); bp_topk_route (the
+     whole gate of one MoE layer) in idx, w, counts, H_new and steps at
+     those shapes in float32 and bfloat16 and at the 32k prefill's gate
+     (T=32,768, bfloat16), with and without backpressure, each case
+     launched twice back to back (the workspace reset), timed at the
+     decode and the prefill shape;
   3. the fleet path at full width: `run_fleet` over 1,512 pi3_reg sims (8
      registry families x topo_seeds 0-20 x 3 rates x 3 seeds, padded to the
      atlas hull (16, 51, 4)), T=4096, chunk=512, early stop; results are
@@ -42,14 +48,17 @@ on failure:
      plain top-k;
   7. the serve path at full width: granite-moe-1b-a400m (24 layers, 32
      experts top-8, random float32 weights from a seed), `Engine(slots=4,
-     max_len=128)` answers 8 requests; every request must finish and
-     bp_topk launch 24 times per decode step; ms per step, tokens/s and a
-     profiled step's device-busy share;
+     max_len=128)` answers 8 requests; every request must finish,
+     bp_topk_route launch 24 times per decode step and the standalone
+     bp_topk never; ms per step, tokens/s, a profiled step's activities
+     (per layer too) and device-busy share, and one layer's gate traced
+     alone: its activities, one bp_topk_route and no softmax;
   8. the serve path on the card against the CPU at full width and 4
      layers: the same experts in every layer, logits within 1e-4;
   9. bp_route bit for bit against its plain version at bench_kernels'
      shape (N=512, C=96, E=4096) on random and tie-heavy inputs, float32
      and bfloat16, and once through its entry point `bp_route_op`;
+     device times in float32 and bfloat16 beside the bounds;
  10. flash_attention against its plain version (1e-5 float32, 2e-2
      bfloat16; bfloat16 outputs also within bf16 rounding of the plain
      version's float32 result), float32 through the CUDA-core kernel and
@@ -68,8 +77,10 @@ on failure:
      random float32 weights from a seed) through `make_prefill_step` at
      B=1, S=32,768, bfloat16 activations, 2 timed prefills after a short
      warm-up: finite [1, 1, 49155] logits, the sm90 flash kernel and
-     bp_topk 24 launches each per prefill and the CUDA-core flash kernel
-     none, the new router queues finite and >= 0; ms per prefill,
+     bp_topk_route 24 launches each per prefill, the CUDA-core flash
+     kernel and the standalone bp_topk none, one layer's gate traced
+     alone (one bp_topk_route, no softmax), the new router queues finite
+     and >= 0; ms per prefill,
      tokens/s, peak memory, a profiled prefill's busy share and flash
      share; then the 17 row windows' gate on the q, k and v that layer 1
      projects from the prefill's tokens;
@@ -126,6 +137,12 @@ STEP_CASES = (("paper_grid", "pi1", 1, 0, "fifo"),
 #: bp_topk shapes (T, E, k): one decode step of the serve phase (4 slots,
 #: granite's 32 experts top-8) first, then the kernel table's three.
 TOPK_SHAPES = ((4, 32, 8), (8, 32, 8), (1024, 64, 6), (4096, 32, 8))
+#: bp_topk_route: TOPK_SHAPES in float32 and bfloat16, and in bfloat16
+#: the prefill's gate (B=1, S=32,768 tokens, granite's E=32 top-8), a
+#: moonshot gate (E=64 top-6) at 16,384 tokens, and 16,383 tokens of
+#: granite's, the last shape below the kernel's thread-per-row path.
+ROUTE_PREFILL_SHAPE = (32_768, 32, 8)
+ROUTE_MORE_SHAPES = ((16_384, 64, 6), (16_383, 32, 8), (16_384, 32, 8))
 SERVE_ARCH = "granite-moe-1b-a400m"
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 128, 8, 12
 REF_LAYERS, REF_STEPS = 4, 4    # the serve path's card-vs-CPU check
@@ -492,10 +509,13 @@ def topk_inputs(gen, T: int, E: int, ties: bool, bias: str, dev):
 def phase_topk(dev, peaks):
     """bp_topk against its plain version, bit for bit, at the serving
     path's decode shape and the three shapes of the kernel table, on random
-    and tie-heavy inputs; device times at each shape.  The row reported is
-    the serving path's own shape: one decode step of `Engine(slots=4)`."""
+    and tie-heavy inputs; once through its entry point `bp_topk_op` with
+    the launch count read around it (its path: the model routes through
+    bp_topk_route); device times at each shape.  The row reported is one
+    decode step's gate of `Engine(slots=4)`."""
     import torch
     from repro_torch.kernels.bp_topk import kernel as K
+    from repro_torch.kernels.bp_topk.ops import bp_topk_op
     from repro_torch.kernels.bp_topk.ref import bp_topk_ref
     gen = torch.Generator().manual_seed(1)
     errs, timed = [], {}
@@ -516,6 +536,18 @@ def phase_topk(dev, peaks):
             errs += [(idx, ridx), (w, rw)]
             if not ties:
                 timed[(T, E, k)] = (s, b)
+    # bp_topk's path: its entry point `bp_topk_op` (the counterpart of
+    # the JAX package's op), once, with the launch count read around it;
+    # the model routes through bp_topk_route (phase_topk_route)
+    s, b = timed[TOPK_SHAPES[0]]
+    K.bp_topk.launches = 0
+    oidx, _ = bp_topk_op(s.reshape(2, -1, s.shape[1]), b, TOPK_SHAPES[0][2])
+    torch.cuda.synchronize()
+    launches = K.bp_topk.launches
+    check(launches == 1, f"bp_topk_op launched bp_topk {launches} times")
+    check(torch.equal(oidx.reshape(TOPK_SHAPES[0][0], -1),
+                      bp_topk_ref(s, b, TOPK_SHAPES[0][2])[0]),
+          "bp_topk_op differs from the plain version")
     for (T, E, k), (s, b) in timed.items():
         nbytes = 4 * T * E + 4 * E + (4 + 4) * T * k
         # max, subtract, exp, sum, divide, bias per entry; k argmax passes;
@@ -526,6 +558,7 @@ def phase_topk(dev, peaks):
             source="src/repro_torch/kernels/bp_topk/csrc/bp_topk.cu",
             replaces="src/repro/kernels/bp_topk/kernel.py:43",
             max_abs_err=max_abs_err(errs), shape=(T, E, k),
+            launches=launches, path="bp_topk_op (phase_topk)",
             ms=device_ms(lambda: K.bp_topk(s, b, k), match="bp_topk_kernel"),
             wrapper_ms=device_ms(lambda: K.bp_topk(s, b, k)),
             wall_ms=wall_ms(lambda: K.bp_topk(s, b, k)),
@@ -540,6 +573,147 @@ def phase_topk(dev, peaks):
         if (T, E, k) == TOPK_SHAPES[0]:
             main_row = row
     return main_row
+
+
+def route_bound(T: int, E: int, k: int, itemsize: int, peaks):
+    """(bytes, operations, bound ms, bound by) of one bp_topk_route call:
+    the logits, H and steps read once; idx (int64), w, counts, H_new and
+    steps written once.  Operations per entry: max, subtract, exp, add,
+    divide, bias subtract and its divide, and one compare per level of the
+    selection network (log2 E of them); per pick: an add and a divide; per
+    expert: the H update's add, subtract and max."""
+    nbytes = itemsize * T * E + 4 * E + 4 + (8 + itemsize) * T * k + \
+        (4 + 4) * E + 4
+    nops = T * ((7 + max(1, math.ceil(math.log2(E)))) * E + 2 * k) + 3 * E
+    return (nbytes, nops) + bound_of(nbytes, nops, peaks)
+
+
+def phase_topk_route(dev, peaks):
+    """bp_topk_route against its plain version, bit for bit in idx, w,
+    counts, H_new and steps: TOPK_SHAPES in float32 and bfloat16, and the
+    32k prefill's gate and ROUTE_MORE_SHAPES in bfloat16; random and
+    tie-heavy logits, with and
+    without backpressure, non-zero H; each case launched twice back to
+    back (the second launch must equal the first: the first left its
+    workspace zero).  Device times at the decode step's shape (float32,
+    the serve path's) and at the bfloat16 shapes beside their bounds (the
+    last two straddle the kernel's switch to one thread per row); the row
+    reported is the decode step's."""
+    import torch
+    from repro_torch.kernels.bp_topk import kernel as K
+    from repro_torch.kernels.bp_topk.ref import bp_topk_route_ref
+    gen = torch.Generator().manual_seed(4)
+    errs, n = [], 0
+    cases = [(shape, dt) for shape in TOPK_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(shape, torch.bfloat16)
+              for shape in (ROUTE_PREFILL_SHAPE,) + ROUTE_MORE_SHAPES]
+    timed = {}
+    for (T, E, k), dt in cases:
+        for ties, bp in ((False, True), (True, True), (True, False)):
+            s, _ = topk_inputs(gen, T, E, ties, "zero", dev)
+            s = s.to(dt)
+            H = (torch.randint(0, 6, (E,), generator=gen).float() *
+                 0.5).to(dev)
+            steps = torch.tensor(7, dtype=torch.int32, device=dev)
+            cap = T * k / E
+            want = bp_topk_route_ref(s, H, steps, cap, k, bp)
+            for _ in range(2):
+                got = K.bp_topk_route(s, H, steps, cap, k, bp)
+                torch.cuda.synchronize()
+                check(all(a.dtype == b.dtype and bits_equal(a, b)
+                          for a, b in zip(got, want)),
+                      f"bp_topk_route differs from its plain version at "
+                      f"T={T}, E={E}, k={k}, {dt}, ties={ties}, "
+                      f"backpressure={bp}: "
+                      f"{int((got[0] != want[0]).sum())} indices, counts "
+                      f"{int((got[2] != want[2]).sum())}, steps "
+                      f"{int(got[4])}/{int(want[4])}")
+                n += 1
+            if ties and not bp:
+                check(bool((got[0][0] == torch.arange(k, device=dev)).all()),
+                      "an all-equal row must pick experts 0..k-1")
+            check(float(got[2].sum()) == T * k, "counts must sum to T k")
+            errs += [(a.float(), b.float()) for a, b in zip(got, want)]
+            if not ties:
+                timed[(T, E, k, dt)] = (s, H, steps, cap, k)
+    rows = []
+    for key in [(*TOPK_SHAPES[0], torch.float32)] + [
+            (*shape, torch.bfloat16)
+            for shape in (ROUTE_PREFILL_SHAPE,) + ROUTE_MORE_SHAPES]:
+        s, H, steps, cap, k = timed[key]
+        T, E = s.shape
+        nbytes, nops, b_ms, by = route_bound(T, E, k, s.element_size(),
+                                             peaks)
+
+        def call():
+            return K.bp_topk_route(s, H, steps, cap, k, True)
+
+        def plain():
+            return bp_topk_route_ref(s, H, steps, cap, k, True)
+        row = dict(
+            name="bp_topk_route", route="cuda",
+            source="src/repro_torch/kernels/bp_topk/csrc/bp_topk_route.cu",
+            replaces="src/repro/kernels/bp_topk/kernel.py:43",
+            max_abs_err=max_abs_err(errs), shape=(T, E, k),
+            ms=device_ms(call, match="bp_topk_route_"),
+            wrapper_ms=device_ms(call), wall_ms=wall_ms(call),
+            plain_ms=device_ms(plain), library_ms=None, bytes=nbytes,
+            ops=nops, bound_ms=b_ms, bound_by=by)
+        log(f"kernel bp_topk_route at T={T}, E={E}, k={k}, {key[3]}: "
+            f"{row['ms']:.6f} ms on the card (wrapper {row['wrapper_ms']:.6f}"
+            f" ms of device time, {row['wall_ms']:.6f} ms between host "
+            f"events; plain {row['plain_ms']:.6f} ms on the card), bound "
+            f"{b_ms * 1e3:.6f} us by {by} ({nbytes} B, {nops} ops), "
+            f"{row['ms'] / b_ms:.2f}x the bound; library: no single PyTorch "
+            f"call")
+        rows.append(row)
+    log(f"bp_topk_route: {n} launches bit-identical to the plain version "
+        f"({len(cases)} shapes x dtypes, 3 input kinds, twice each)")
+    return rows[0]
+
+
+def route_activities(cfg, p, x, H, calls: int = 10):
+    """The CUDA activities of one MoE layer's gate, `moe._route` with
+    ``use_kernel=True``, from a profiler trace of ``calls`` calls after a
+    warm-up: (activities per call, the distinct names).  The profiler can
+    drop records (see `device_ms`; one window on an H100 kept the fill
+    kernels of 10 calls and none of their bp_topk_route launches), so a window that holds fewer bp_topk_route records than
+    calls is traced again, up to PROFILE_TRIES windows; per call is the
+    trace's activities over its bp_topk_route records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.router import RouterState
+    from repro_torch.models import moe
+    G, Tg, _ = x.shape
+    rs = RouterState(H=H, steps=torch.zeros((), dtype=torch.int32,
+                                            device=x.device))
+    moe._route(cfg, p, x, rs, use_kernel=True)
+    torch.cuda.synchronize()
+    best = (0, [])
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                moe._route(cfg, p, x, rs, use_kernel=True)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        gates = sum("bp_topk_route_" in nm for nm in names)
+        check(not any("softmax" in nm.lower() for nm in names),
+              f"the backpressure gate launched a softmax: "
+              f"{sorted(set(names))}")
+        if gates > best[0]:
+            best = (gates, names)
+        if gates == calls:
+            break
+        log(f"route_activities: the profiler kept {gates} of {calls} "
+            f"bp_topk_route records and {len(names)} activities; tracing "
+            f"again")
+    gates, names = best
+    check(gates > 0, f"no trace of {PROFILE_TRIES} windows holds a "
+          f"bp_topk_route launch of the gate's {calls} calls")
+    return len(names) / gates, sorted(set(names))
 
 
 # ---------------------------------------------------------------------------
@@ -1185,13 +1359,16 @@ def tree_numel(tree) -> int:
 def phase_serve(dev):
     """granite-moe-1b-a400m at full width on the card through
     `Engine.run_until_done`: 8 requests drawn as the JAX CLI draws them,
-    every MoE layer's routing through bp_topk (24 launches per decode
-    step); then the step time and one profiled step's device-busy share."""
+    every MoE layer's gate one bp_topk_route launch (24 per decode step)
+    and the standalone bp_topk never; then the step time, one profiled
+    step's activities (per layer too) and device-busy share, and the
+    activities of one layer's gate at the decode shape (no softmax)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.bp_topk import kernel as K
     from repro_torch.launch.serve import Engine
+    from repro_torch.models.transformer import layer
     t0 = time.perf_counter()
     cfg, params = serve_model(dev)
     torch.cuda.synchronize()
@@ -1207,20 +1384,23 @@ def phase_serve(dev):
         plen = int(rng.integers(4, 16))
         eng.submit(list(rng.integers(0, cfg.vocab, plen)), SERVE_MAX_NEW)
     K.bp_topk.launches = 0
+    K.bp_topk_route.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     finished = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, steps = K.bp_topk.launches, eng.steps
+    launches, steps = K.bp_topk_route.launches, eng.steps
+    check(K.bp_topk.launches == 0, f"the serve path launched the standalone "
+          f"bp_topk {K.bp_topk.launches} times")
     check(sorted(finished) == list(range(SERVE_REQUESTS)),
           f"served {sorted(finished)} of {SERVE_REQUESTS} requests")
     outs = [finished[r].out for r in sorted(finished)]
     check(all(len(o) == SERVE_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
               for o in outs), f"malformed outputs {outs}")
     check(launches == cfg.n_layers * steps > 0,
-          f"bp_topk launched {launches} times in {steps} decode steps, "
-          f"expected {cfg.n_layers} per step")
+          f"bp_topk_route launched {launches} times in {steps} decode "
+          f"steps, expected {cfg.n_layers} per step")
     n_tok = sum(len(o) for o in outs)
     ms_step = wall / steps * 1e3
 
@@ -1248,16 +1428,26 @@ def phase_serve(dev):
         for e in evs:
             kinds[e.name] = kinds.get(e.name, 0) + e.device_time / 1e3
         topk = sorted(kinds.items(), key=lambda kv: -kv[1])[:6]
-        busy = (f"{len(evs)} CUDA device activities, {dev_ms:.4f} ms of "
+        gate = sum(1 for e in evs if "bp_topk_route_" in e.name)
+        busy = (f"{len(evs)} CUDA device activities "
+                f"({len(evs) / cfg.n_layers:.2f} per layer; {gate} "
+                f"bp_topk_route), {dev_ms:.4f} ms of "
                 f"device time per decode step, busy {dev_ms / med:.4f} of "
                 f"the unprofiled step's {med:.4f} ms; most time: " + "; ".join(
                     f"{n[:50]} {t:.4f} ms" for n, t in topk))
     else:
         busy = "device-busy share not measured (no device activity traced)"
+    n_gate, gate_names = route_activities(
+        cfg, layer(params["stack"]["layers"], 0)["moe"],
+        torch.randn((SERVE_SLOTS, 1, cfg.d_model), device=dev),
+        torch.zeros((cfg.n_experts,), device=dev))
     log(f"serve: {len(finished)} requests, {n_tok} tokens, {steps} decode "
         f"steps (prefill included) in {wall:.3f} s: {ms_step:.4f} ms per "
-        f"decode step, {n_tok / wall:.2f} generated tokens/s; bp_topk "
-        f"launches {launches} = {cfg.n_layers} x {steps}; {busy}; "
+        f"decode step (unprofiled step alone {med:.4f} ms), "
+        f"{n_tok / wall:.2f} generated tokens/s; bp_topk_route "
+        f"launches {launches} = {cfg.n_layers} x {steps}, bp_topk 0; "
+        f"{busy}; one layer's gate at the decode shape: {n_gate:.2f} CUDA "
+        f"activities per call ({', '.join(nm[:40] for nm in gate_names)}); "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB")
     for rid in sorted(finished)[:2]:
@@ -1418,12 +1608,19 @@ def phase_route(dev, peaks):
         ops=3 * E * C)
     row["bound_ms"], row["bound_by"] = bound_of(row["bytes"], row["ops"],
                                                 peaks)
+    qm16, ql16 = qm.to(torch.bfloat16), ql.to(torch.bfloat16)
+    ms16 = device_ms(lambda: K.bp_route_decide(qm16, ql16, cap),
+                     match="bp_route_kernel")
+    b16, by16 = bound_of(2 * 2 * E * C + 4 * E + 12 * E, 3 * E * C, peaks)
     log(f"kernel bp_route_decide at E={E}, C={C} (N={ROUTE_N}): "
         f"{row['ms']:.6f} ms on the card ({row['wall_ms']:.6f} ms between "
         f"host events; plain {row['plain_ms']:.6f} ms on the card), bound "
         f"{row['bound_ms'] * 1e3:.4f} us by {row['bound_by']} "
-        f"({row['bytes']} B, {row['ops']} ops); bit-identical on 4 cases; "
-        f"bp_route_op launched it once; library: no single PyTorch call")
+        f"({row['bytes']} B, {row['ops']} ops), "
+        f"{row['ms'] / row['bound_ms']:.2f}x the bound; bfloat16 "
+        f"{ms16:.6f} ms, bound {b16 * 1e3:.4f} us by {by16}; bit-identical "
+        f"on 4 cases; bp_route_op launched it once; library: no single "
+        f"PyTorch call")
     return row
 
 
@@ -1636,6 +1833,7 @@ def phase_prefill(dev):
     from repro_torch.kernels.bp_topk import kernel as TK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.models import get_model
+    from repro_torch.models.transformer import layer
     from repro_torch.runtime.step import make_prefill_step
     t0 = time.perf_counter()
     cfg, params = serve_model(dev)
@@ -1660,6 +1858,7 @@ def phase_prefill(dev):
     FK.flash_attention.launches = 0
     FK.flash_attention.launches_sm90 = 0
     TK.bp_topk.launches = 0
+    TK.bp_topk_route.launches = 0
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1669,12 +1868,14 @@ def phase_prefill(dev):
         walls.append((time.perf_counter() - t1) * 1e3)
     launches = {"flash_attention_sm90": FK.flash_attention.launches_sm90,
                 "flash_attention": FK.flash_attention.launches,
+                "bp_topk_route": TK.bp_topk_route.launches,
                 "bp_topk": TK.bp_topk.launches}
     check(launches == {"flash_attention_sm90": 2 * cfg.n_layers,
-                       "flash_attention": 0, "bp_topk": 2 * cfg.n_layers},
+                       "flash_attention": 0,
+                       "bp_topk_route": 2 * cfg.n_layers, "bp_topk": 0},
           f"launches {launches} in 2 prefills, expected {cfg.n_layers} of "
-          f"the sm90 flash kernel and of bp_topk per prefill, none of the "
-          f"CUDA-core flash kernel")
+          f"the sm90 flash kernel and of bp_topk_route per prefill, none of "
+          f"the CUDA-core flash kernel or of the standalone bp_topk")
     check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab) and
           logits.dtype == torch.bfloat16 and
           bool(torch.isfinite(logits).all()),
@@ -1702,13 +1903,23 @@ def phase_prefill(dev):
             kinds[e.name] = kinds.get(e.name, 0) + e.device_time / 1e3
         top = sorted(kinds.items(), key=lambda kv: -kv[1])[:6]
         flash = sum(t for n, t in kinds.items() if "flash_attention" in n)
+        gate = sum(t for n, t in kinds.items() if "bp_topk_route_" in n)
         busy = (f"{len(evs)} CUDA device activities, {dev_ms:.4f} ms of "
                 f"device time, busy {dev_ms / med:.4f} of the unprofiled "
                 f"prefill's {med:.4f} ms; flash attention {flash:.4f} ms "
-                f"({flash / dev_ms:.4f} of the device time); most time: " +
+                f"({flash / dev_ms:.4f} of the device time); bp_topk_route "
+                f"{gate:.4f} ms; most time: " +
                 "; ".join(f"{n[:50]} {t:.4f} ms" for n, t in top))
     else:
         busy = "device-busy share not measured (no device activity traced)"
+    n_gate, gate_names = route_activities(
+        cfg, layer(params["stack"]["layers"], 0)["moe"],
+        torch.randn((PREFILL_B, PREFILL_S, cfg.d_model), device=dev,
+                    dtype=torch.bfloat16),
+        torch.zeros((cfg.n_experts,), device=dev))
+    log(f"prefill: one layer's gate at the prefill shape (bf16): "
+        f"{n_gate:.2f} CUDA activities per call "
+        f"({', '.join(nm[:40] for nm in gate_names)})")
     log(f"prefill: B={PREFILL_B}, S={PREFILL_S}, bf16 activations, 2 "
         f"prefills {', '.join(f'{w:.4f}' for w in walls)} ms: {med:.4f} ms "
         f"per prefill, {PREFILL_B * PREFILL_S / med * 1e3:.2f} prefill "
@@ -1754,8 +1965,9 @@ def compare_routes(rec_dev, rec_cpu, cfg):
 
 
 def phase_prefill_reference(dev):
-    """The prefill path on the card (flash attention, bp_topk) against the
-    port's plain path on the CPU (sdpa, bp_topk's plain version), at full
+    """The prefill path on the card (flash attention, bp_topk_route)
+    against the port's plain path on the CPU (sdpa, bp_topk_route's plain
+    version), at full
     width and REF_LAYERS layers, B=PREFILL_REF_B, S=PREFILL_REF_S, float32,
     from the same weights and tokens.
 
@@ -2018,6 +2230,7 @@ def main() -> int:
     phase_build_report(_build)
 
     rows = phase_kernels(dev, peaks)
+    rows["bp_topk_route"] = phase_topk_route(dev, peaks)
     rows["bp_route_decide"] = phase_route(dev, peaks)
     rows["flash_attention"] = phase_flash(dev, peaks)
     res, jobs, launches, wall = phase_main(dev)
@@ -2034,12 +2247,15 @@ def main() -> int:
     phase_determinism(dev, res, jobs)
     phase_wireless(dev)
     phase_router(dev)
-    launches["bp_topk"] = phase_serve(dev)
+    launches["bp_topk_route"] = phase_serve(dev)
+    rows["bp_topk_route"]["path"] = ("Engine decode steps (phase_serve); "
+                                     "24 more per prefill (phase_prefill)")
     phase_serve_reference(dev)
     launches["flash_attention"] = phase_prefill(dev)["flash_attention_sm90"]
     phase_prefill_reference(dev)
     phase_prefill_bf16_layers(dev)
     launches["bp_route_decide"] = rows["bp_route_decide"]["launches"]
+    launches["bp_topk"] = rows["bp_topk"]["launches"]
     for k, r in rows.items():
         r["launches"] = launches[k]
         check(r["launches"] > 0, f"{k}: no launch on its path")
@@ -2049,7 +2265,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # A plain version timed at another shape than the kernel says which;
     # flash attention also names its kernel and the CUDA-core kernel's
-    # float32 time; the bp_slot kernels name the path that launched them.
+    # float32 time; the bp_slot and bp_topk rows name the path that
+    # launched them.
     shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms", "path")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}

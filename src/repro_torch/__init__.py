@@ -9,7 +9,8 @@ module names.  It imports torch, numpy and scipy, never jax and nothing of
   * `kernels.bp_slot` — the per-slot routing and comp/balance decisions
     (`csrc/bp_slot.cu`);
   * `kernels.bp_topk` — the fused backpressure top-k gate of MoE routing
-    (`csrc/bp_topk.cu`);
+    (`csrc/bp_topk.cu`), and the whole gate of one MoE layer in one launch
+    (`csrc/bp_topk_route.cu`);
   * `sim`, `fleet` — the trace simulator and the batched fleet engine;
     every state tensor carries a leading fleet axis [B];
   * `configs`, `models` — the ported architectures and the dense/MoE

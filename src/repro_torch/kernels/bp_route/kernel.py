@@ -9,7 +9,7 @@ wrapper checks dtype, shape, device and contiguity, then:
     `repro_torch.kernels._build`) or raises — there is no fallback.
 
 The reference pads the links to a multiple of its block; the kernel runs
-one thread per link and needs no padding.  ``bp_route_decide.launches``
+a group of lanes per link (a warp at C = 96) and needs no padding.  ``bp_route_decide.launches``
 counts CUDA launches only.
 """
 from __future__ import annotations

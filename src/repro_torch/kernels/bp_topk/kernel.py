@@ -1,14 +1,18 @@
-"""Wrapper of the fused backpressure top-k gate CUDA kernel (bp_topk).
+"""Wrappers of the backpressure top-k gate CUDA kernels (bp_topk).
 
 `bp_topk` replaces the Pallas TPU kernel `repro.kernels.bp_topk.kernel.
-bp_topk`; its CUDA source is `csrc/bp_topk.cu`.  The wrapper checks dtype,
-shape, device and contiguity, then:
+bp_topk`; its CUDA source is `csrc/bp_topk.cu`.  `bp_topk_route` runs the
+whole gate of one MoE layer (`repro.models.moe._route` with
+``use_kernel=True``: the bias, that kernel's function, the expert counts
+and the H update) in one launch; its source is `csrc/bp_topk_route.cu`.
+Each wrapper checks dtype, shape, device and contiguity, then:
 
   * for CPU tensors, runs the plain PyTorch version in `ref.py`;
   * for CUDA tensors, launches the kernel (building it at first use, see
     `repro_torch.kernels._build`) or raises — there is no fallback.
 
-``bp_topk.launches`` counts CUDA launches only.
+``bp_topk.launches`` and ``bp_topk_route.launches`` count CUDA launches
+only.
 """
 from __future__ import annotations
 
@@ -19,9 +23,15 @@ import torch
 
 from .. import _build
 from ..bp_slot.kernel import _check, _raise_on
-from .ref import bp_topk_ref
+from .ref import bp_topk_ref, bp_topk_route_ref
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "bp_topk.cu"
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "bp_topk.cu"
+ROUTE_SOURCE = CSRC / "bp_topk_route.cu"
+#: Logits (and weights) dtypes of `bp_topk_route`, by the C entry's code.
+ROUTE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Shared memory one block of the fused kernel may use (bytes).
+SMEM_LIMIT = 232448
 
 
 def _lib() -> ctypes.CDLL:
@@ -71,3 +81,78 @@ def bp_topk(scores: torch.Tensor, bias: torch.Tensor, k: int):
 
 
 bp_topk.launches = 0
+
+
+def _route_lib() -> ctypes.CDLL:
+    lib = _build.load(ROUTE_SOURCE)
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.bp_topk_route.argtypes = [vp, ci, vp, vp, ctypes.c_float, ci, vp,
+                                      vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.bp_topk_route.restype = ci
+        lib._typed = True
+    return lib
+
+
+#: The fused kernel's int32 workspace ([0] ticket, [1 + e] counts) per
+#: (device, stream): allocated once, zeroed; every launch leaves it zero.
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int, E: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < 1 + E:
+        ws = _WORKSPACES[key] = torch.zeros(1 + E, dtype=torch.int32,
+                                            device=dev)
+    return ws
+
+
+def bp_topk_route(logits: torch.Tensor, H: torch.Tensor, steps: torch.Tensor,
+                  cap: float, k: int, backpressure: bool):
+    """The backpressure gate of one MoE layer.
+
+    logits: [T, E] float32 or bfloat16 router logits; H: [E] float32
+    virtual queues; steps: [] int32; cap: the per-step capacity C_e (a
+    Python float, taken as float32); ``backpressure``: bias the selection
+    by H / max(cap, 1) (else no bias).  Returns (idx [T, k] int64,
+    w [T, k] in the logits' dtype, counts [E] float32, H_new [E] float32,
+    steps + 1), equal bit for bit to `ref.bp_topk_route_ref`."""
+    if logits.dim() != 2:
+        raise ValueError(f"logits: expected [T, E], got {tuple(logits.shape)}")
+    T, E = logits.shape
+    dev = logits.device
+    if logits.dtype not in ROUTE_DTYPES:
+        raise TypeError(f"logits: expected float32 or bfloat16, got "
+                        f"{logits.dtype}")
+    _check("logits", logits, logits.dtype, (T, E), dev)
+    _check("H", H, torch.float32, (E,), dev)
+    _check("steps", steps, torch.int32, (), dev)
+    if T < 1 or not 1 <= k <= E:
+        raise ValueError(f"T={T} must be >= 1 and k={k} lie in [1, E={E}]")
+    if dev.type == "cpu":
+        return bp_topk_route_ref(logits, H, steps, cap, k, backpressure)
+    if dev.type != "cuda":
+        raise ValueError(f"bp_topk_route: unsupported device {dev}")
+    if (E > 256 or k > 32) and 4 * E + 4 * (2 * E + k) > SMEM_LIMIT:
+        raise ValueError(f"bp_topk_route: E={E}, k={k} exceed one block's "
+                         f"shared memory")
+    idx = torch.empty((T, k), dtype=torch.int64, device=dev)
+    w = torch.empty((T, k), dtype=logits.dtype, device=dev)
+    counts = torch.empty((E,), dtype=torch.float32, device=dev)
+    H_new = torch.empty((E,), dtype=torch.float32, device=dev)
+    steps_new = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = _workspace(dev, stream, E)
+        err = _route_lib().bp_topk_route(
+            logits.data_ptr(), ROUTE_DTYPES[logits.dtype], H.data_ptr(),
+            steps.data_ptr(), ctypes.c_float(cap), int(bool(backpressure)),
+            idx.data_ptr(), w.data_ptr(), counts.data_ptr(), H_new.data_ptr(),
+            steps_new.data_ptr(), ws.data_ptr(), T, E, k, stream)
+    _raise_on(err, "bp_topk_route")
+    bp_topk_route.launches += 1
+    return idx, w, counts, H_new, steps_new
+
+
+bp_topk_route.launches = 0

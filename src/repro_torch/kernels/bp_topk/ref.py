@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the fused backpressure top-k gate (bp_topk).
+"""Plain PyTorch versions of the backpressure top-k gate (bp_topk) and of
+the whole gate of one MoE layer (bp_topk_route).
 
 Port of what `repro.kernels.bp_topk.kernel._bp_topk_kernel` computes for
 every row of [T, E] scores:
@@ -19,6 +20,13 @@ l, l+32, l+64, ... in that order) and then halving adds over the 32 lanes
 multiple of 32.  The max and the argmax are exact in any order.  Against
 the JAX package it agrees to rounding, not bit for bit: XLA sums the
 softmax in another order.
+
+`bp_topk_route_ref` is the function of `csrc/bp_topk_route.cu`: the bias
+H / max(cap, 1), `bp_topk_ref` on the logits widened to float32, the
+expert counts and the H update of `repro.models.moe._route`.  Its top k
+is `bp_topk_ref`'s, which the fused kernel's sort gives as well (the k
+largest sel in order, the lowest index on ties), so the kernel is held to
+it bit for bit.
 """
 from __future__ import annotations
 
@@ -63,3 +71,23 @@ def bp_topk_ref(scores: torch.Tensor, bias: torch.Tensor, k: int):
         wsum = wsum + p
         work[rows, best] = NEG
     return idx, picked / torch.clamp(wsum, min=1e-9)[:, None]
+
+
+def bp_topk_route_ref(logits: torch.Tensor, H: torch.Tensor,
+                      steps: torch.Tensor, cap: float, k: int,
+                      backpressure: bool):
+    """logits [T, E] float32 or bfloat16, H [E] float32, steps [] int32,
+    cap the per-step capacity (taken as float32).  Returns (idx [T, k]
+    int64, w [T, k] in the logits' dtype, counts [E] float32, H_new [E]
+    float32, steps + 1)."""
+    T, E = logits.shape
+    cap_t = torch.full((), cap, dtype=torch.float32, device=logits.device)
+    if backpressure:
+        bias = H / torch.clamp(cap_t, min=1.0)
+    else:
+        bias = torch.zeros((E,), dtype=torch.float32, device=logits.device)
+    idx, w = bp_topk_ref(logits.to(torch.float32), bias, k)
+    idx = idx.long()
+    counts = torch.bincount(idx.reshape(-1), minlength=E).to(torch.float32)
+    H_new = torch.clamp(H + counts - cap_t, min=0.0)
+    return idx, w.to(logits.dtype), counts, H_new, steps + 1

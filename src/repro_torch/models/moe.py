@@ -8,8 +8,9 @@ computation capacity C_n).  The reference's expert-parallel resharding
 hooks (`ep_in`/`ep_out`) are identity on one card and are not ported.
 
 Routing (`_route`) has the reference's two branches: ``use_kernel=True``
-runs the fused gate `bp_topk` (the hand-written CUDA kernel on a CUDA
-tensor: softmax, H-bias, top-k and renormalisation in one launch), used
+runs the whole gate after the router projection through `bp_topk_route`
+(on a CUDA tensor one launch of a hand-written kernel: the H-bias, the
+reference's fused bp_topk gate, the expert counts and the H update), used
 for inference routing; ``use_kernel=False`` runs the plain softmax/top-k
 path.  Both take the lowest expert index on ties.
 
@@ -26,7 +27,7 @@ from typing import Tuple
 import torch
 
 from ..core.router import RouterState, expert_counts, topk_first
-from ..kernels.bp_topk.ops import bp_topk_op
+from ..kernels.bp_topk.kernel import bp_topk_route
 from .common import Init
 
 
@@ -49,25 +50,31 @@ def _route(cfg, p, x_flat, router_state: RouterState, *,
     E, k = cfg.n_experts, cfg.top_k
     logits = torch.einsum("gtd,de->gte", x_flat,
                           p["router"].to(x_flat.dtype))
-    probs = torch.softmax(logits.to(torch.float32), dim=-1)
-
-    cap_step = torch.full((), G * Tg * k / E, dtype=torch.float32,
-                          device=x_flat.device)            # C_e per step
-    if cfg.router == "backpressure":
-        bias = router_state.H / torch.clamp(cap_step, min=1.0)
-    else:
-        bias = torch.zeros((E,), dtype=torch.float32, device=x_flat.device)
     if use_kernel:
-        idx, w = bp_topk_op(logits.to(torch.float32), bias, k)
-        idx = idx.long()
+        # one launch: bias, gate, counts, H update (logits read in place)
+        idx, w, counts, H_new, steps = bp_topk_route(
+            logits.reshape(G * Tg, E).contiguous(),
+            router_state.H.contiguous(), router_state.steps,
+            G * Tg * k / E, k, backpressure=cfg.router == "backpressure")
+        idx, w = idx.reshape(G, Tg, k), w.reshape(G, Tg, k)
+        new_state = RouterState(H=H_new, steps=steps)
+        probs = (torch.softmax(logits.to(torch.float32), dim=-1)
+                 if cfg.router == "aux" else None)
     else:
+        probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        cap_step = torch.full((), G * Tg * k / E, dtype=torch.float32,
+                              device=x_flat.device)        # C_e per step
+        if cfg.router == "backpressure":
+            bias = router_state.H / torch.clamp(cap_step, min=1.0)
+        else:
+            bias = torch.zeros((E,), dtype=torch.float32,
+                               device=x_flat.device)
         idx = topk_first(probs - bias[None, None, :], k)      # [G, Tg, k]
         w = torch.gather(probs, -1, idx)
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-
-    counts = expert_counts(idx, E)
-    H_new = torch.clamp(router_state.H + counts - cap_step, min=0.0)
-    new_state = RouterState(H=H_new, steps=router_state.steps + 1)
+        counts = expert_counts(idx, E)
+        H_new = torch.clamp(router_state.H + counts - cap_step, min=0.0)
+        new_state = RouterState(H=H_new, steps=router_state.steps + 1)
 
     if cfg.router == "aux":
         f = counts / torch.clamp(counts.sum(), min=1.0)

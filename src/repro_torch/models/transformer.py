@@ -7,8 +7,8 @@ reference; its `layer_scan` over the stack becomes a Python loop over the
 layers.  `lm_loss` waits for the training slice, and the local/global
 pattern for its families (ROADMAP A13).
 
-Every MoE layer routes through the fused `bp_topk` gate (the CUDA kernel
-on the card), at decode and at prefill.  The prefill forward
+Every MoE layer routes through `bp_topk_route`, the whole gate in one
+launch of a CUDA kernel on the card, at decode and at prefill.  The prefill forward
 (`lm_logits`) threads the per-layer router queues H through the stack and
 returns each layer's new H, as the reference does; `lm_decode_step`, like
 the reference, drops them: at decode the caller's H is the bias.
@@ -60,7 +60,7 @@ def block_fwd(cfg, p: dict, x, positions, *, window, router_H=None,
               causal: bool = True):
     """x [B, S, d] -> (x', router_H', aux).  The MoE FFN runs its capacity
     path with one group per sequence (G = B) and routes through
-    `bp_topk`."""
+    `bp_topk_route`."""
     h = norm(cfg, x, p.get("ln1"))
     h = attention(cfg, p["attn"], h, positions, window=window, causal=causal)
     x = x + h
@@ -78,7 +78,7 @@ def block_fwd(cfg, p: dict, x, positions, *, window, router_H=None,
 
 def block_decode(cfg, p: dict, x, cache: KVCache, *, window, router_H=None):
     """One token through one block: (x [B, 1, d], cache) -> (x', cache,
-    router_H').  The MoE routing goes through `bp_topk`."""
+    router_H').  The MoE routing goes through `bp_topk_route`."""
     h = norm(cfg, x, p.get("ln1"))
     h, cache = decode_attention(cfg, p["attn"], h, cache, window=window)
     x = x + h

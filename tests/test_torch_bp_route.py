@@ -7,9 +7,11 @@ package's Pallas kernel (interpret mode, through `bp_route_op` and
 `bp_route_decide`) and of its `bp_route_ref`, at `tests/test_kernels.py`'s
 (E, C, N) grid in float32 and bfloat16, and on tie-heavy rows and all-zero
 differentials.  Exact equality is the bound: every step is exact or one
-float32 subtraction.  The `gpu`-marked test holds the CUDA kernel to the
-plain version bit for bit on the card and skips without one; it needs no
-JAX.
+float32 subtraction.  The `gpu`-marked tests hold the CUDA kernel to the
+plain version bit for bit on the card and skip without one; they need no
+JAX.  The kernel gives each link a group of lanes sized by C and reads
+16 bytes a lane where C and alignment allow, single classes otherwise:
+its cases cover both loads, every group size and ragged C.
 """
 import types
 
@@ -150,3 +152,40 @@ def test_cuda_kernel_matches_plain_bitwise():
                     assert a.dtype == b.dtype
                     assert torch.equal(a.view(torch.int32),
                                        b.view(torch.int32)), (E, C, ties)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_ragged_and_unaligned_rows():
+    """Ragged C (groups of 1 to 32 lanes, rows longer than a warp's pass),
+    C that allows 16-byte loads in one dtype and not the other, and rows
+    that start off a 16-byte boundary (single-class loads), in float32 and
+    bfloat16, random and tie-heavy: bit for bit equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(8)
+    for C in (1, 2, 3, 4, 5, 8, 12, 16, 17, 31, 64, 95, 96, 97, 128, 129,
+              300, 1000):
+        for dtype in (torch.float32, torch.bfloat16):
+            for ties in (False, True):
+                Q, edges, cap = route_inputs(rng, 257, C, 64, ties=ties)
+                e = torch.from_numpy(edges).long()
+                Qc = torch.from_numpy(Q).to(dtype).cuda()
+                capc = torch.from_numpy(cap).cuda()
+                for offset in (0, 1):
+                    # offset 1: each row starts one element past the
+                    # allocation's alignment
+                    buf_m = torch.zeros(257 * C + 1, dtype=dtype,
+                                        device="cuda")
+                    buf_l = torch.zeros_like(buf_m)
+                    qm = buf_m[offset:offset + 257 * C].view(257, C)
+                    ql = buf_l[offset:offset + 257 * C].view(257, C)
+                    qm.copy_(Qc[e[:, 0]])
+                    ql.copy_(Qc[e[:, 1]])
+                    got = tkernel.bp_route_decide(qm, ql, capc)
+                    want = bp_route_ref(qm, ql, capc)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, want):
+                        assert torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32)), (
+                            C, dtype, ties, offset)

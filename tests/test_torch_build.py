@@ -1,8 +1,8 @@
 """The port's per-source nvcc flags (`repro_torch.kernels._build`).
 
 No nvcc is needed: these tests read the flag table and the library names
-it hashes.  The bit-exactness contract of B1-B4 and of the fused slot step
-rests on ``-fmad=false`` and on the absence of fast math; flash attention has no such contract and must
+it hashes.  The bit-exactness contract of B1-B4, of the fused slot step
+and of the fused router gate rests on ``-fmad=false`` and on the absence of fast math; flash attention has no such contract and must
 not carry the flag.
 """
 import pathlib
@@ -13,7 +13,8 @@ pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 
-EXACT = ("bp_slot.cu", "bp_slot_step.cu", "bp_topk.cu", "bp_route.cu")
+EXACT = ("bp_slot.cu", "bp_slot_step.cu", "bp_topk.cu",
+         "bp_topk_route.cu", "bp_route.cu")
 FLASH = ("flash_attention.cu", "flash_attention_sm90.cu")
 
 

@@ -16,7 +16,7 @@ emulations of the two CUDA kernels pin their algebra without a GPU:
     itself is pinned on adversarial p.
 The `gpu`-marked tests hold both CUDA kernels to the plain version on the
 card (each case through the kernel its dtype and head dim select), a
-reduced float32 prefill on the card (flash attention and bp_topk in every
+reduced float32 prefill on the card (flash attention and bp_topk_route in every
 layer) to the CPU's, within 1e-4, and each layer's attention in a reduced
 bfloat16 prefill on the card (the sm90 kernel) within bf16 rounding of
 float32 math on that layer's own q, k and v; they skip without a card and
@@ -512,13 +512,15 @@ def test_prefill_on_the_card_matches_the_cpu():
     H = torch.zeros((cfg.n_layers, cfg.n_experts))
     flash0 = tkernel.flash_attention.launches
     topk0 = topk_kernel.bp_topk.launches
+    route0 = topk_kernel.bp_topk_route.launches
     got, gH, _ = api.logits(
         {k: to_device(v, "cuda") for k, v in params.items()},
         {"tokens": toks.cuda()}, activ_dtype=torch.float32,
         router_H=H.cuda())
     torch.cuda.synchronize()
     assert tkernel.flash_attention.launches == flash0 + cfg.n_layers
-    assert topk_kernel.bp_topk.launches == topk0 + cfg.n_layers
+    assert topk_kernel.bp_topk_route.launches == route0 + cfg.n_layers
+    assert topk_kernel.bp_topk.launches == topk0
     want, wH, _ = api.logits(params, {"tokens": toks},
                              activ_dtype=torch.float32, router_H=H)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,

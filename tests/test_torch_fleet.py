@@ -311,6 +311,45 @@ def test_card_scatter_order_changes_only_rounding(monkeypatch):
     assert float(carry.state.delivered.min()) > 0
 
 
+def test_scatter_order_moves_verdicts_only_near_thresholds():
+    """The two scatter orders of the plain slot step (the CPU's in-order
+    adds, which the fused card kernel follows, and the card's plain path,
+    which sums each index's updates first) are rounding of one
+    computation, but a routing tie that rounding flips sends the two
+    trajectories apart, so a sim whose verdict evaluations pass close to
+    a threshold can decide differently.  Pinned on every 16th sim of
+    `chip_smoke.main_jobs()` (95 sims, T=1,024, verdict window 128):
+    every sim whose evaluations, in both orders, all stay more than 0.02
+    (over max(lam, 1)) from the drift and gap thresholds reaches the same
+    verdict in both, and such sims are at least a third of the batch.
+    The margin: at this size the split sims of three such subsets came at
+    most 0.0117 from a threshold (at the main run's T=4,096 and window
+    512, 0.0067), while the orders' estimates themselves differed by up
+    to 0.40.  `scripts/torch_verdict_rounding.py` runs the full 1,512
+    sims (31 split) and compares the split ones with the reference."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_verdict_rounding", ROOT / "scripts" / "torch_verdict_rounding.py")
+    vr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vr)
+    smoke = vr.load_smoke()
+    jobs, _ = smoke.main_jobs()
+    jobs = jobs[::16]
+    inp = vr.batch_of(jobs, tfleet.PadDims(16, 51, 4))
+    runner = tengine.make_stream_runner(
+        PolicyConfig("pi3_reg", eps_b=0.05), T=1024, chunk=128,
+        verdict=tengine.resolve_verdict(None, True))
+    with torch.no_grad():
+        cA, cB, margin, _, _, _ = vr.lockstep(runner, inp)
+    far = margin > 0.02
+    same = cA.drift.verdict == cB.drift.verdict
+    assert bool(same[far].all()), [
+        (jobs[i].scenario, float(margin[i])) for i in range(len(jobs))
+        if far[i] and not same[i]]
+    assert int(far.sum()) * 3 >= len(jobs)
+    assert vr.tref.scatter_add is vr.IN_ORDER       # the order is restored
+
+
 def test_bounds_and_sweep_jobs_match_reference():
     spec = {"paper_grid": ["pi3", "pi3_reg"], "ring": ["pi3bar"],
             "fat_tree": ["pi2_reg"]}

@@ -153,6 +153,44 @@ def test_kernel_routing_equals_einsum_path():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("router", ["backpressure", "plain", "aux"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_kernel_branch_equals_plain_branch(arch, router, dtype):
+    """The port's `_route(use_kernel=True)` (one `bp_topk_route`) against
+    its ``use_kernel=False`` branch, at the full configs' expert counts
+    (granite 32 top-8, moonshot 64 top-6), non-zero H: the same experts,
+    counts, H and steps; weights within rtol 1e-5 / atol 1e-6 in float32
+    (the softmax sums in another order) or one bf16 ulp; aux within
+    1e-6."""
+    full = tconfigs.get_config(arch)
+    tcfg, jcfg = configs(arch, n_experts=full.n_experts, top_k=full.top_k,
+                         router=router)
+    _, p = moe_params(jcfg)
+    rng = np.random.default_rng(9)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 8, tcfg.d_model)).astype(np.float32)).to(dt)
+    rs = RouterState(H=torch.from_numpy(
+        rng.integers(0, 5, tcfg.n_experts).astype(np.float32)),
+        steps=torch.tensor(2, dtype=torch.int32))
+    a = tmoe._route(tcfg, p, x, rs, use_kernel=False)
+    b = tmoe._route(tcfg, p, x, rs, use_kernel=True)
+    assert torch.equal(a[0], b[0]) and a[0].dtype == torch.int64
+    assert a[1].dtype == b[1].dtype == dt
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == "float32" else \
+        dict(rtol=2.0 ** -7, atol=0)
+    np.testing.assert_allclose(a[1].float().numpy(), b[1].float().numpy(),
+                               **tol)
+    assert torch.equal(a[2].H, b[2].H) and torch.equal(a[2].steps,
+                                                        b[2].steps)
+    assert int(b[2].steps) == 3 and b[2].steps.dtype == torch.int32
+    np.testing.assert_allclose(a[3].numpy(), b[3].numpy(), rtol=0,
+                               atol=1e-6)
+    assert torch.equal(a[4], b[4])
+
+
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
                                   "granite-moe-1b-a400m"])
 @pytest.mark.parametrize("use_kernel", [False, True])
@@ -205,6 +243,30 @@ def test_moe_ffn_matches_reference(dropless, capacity_factor):
     np.testing.assert_allclose(yk.numpy(), y.numpy(), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "moonshot-v1-16b-a3b"])
+def test_moe_ffn_kernel_branch_matches_reference(arch):
+    """The MoE FFN routed through the fused gate (`bp_topk_route`'s plain
+    version on the CPU) against the reference's `moe_ffn`, at the full
+    configs' expert counts: outputs within 1e-5, H' within 1e-5, steps
+    equal."""
+    full = tconfigs.get_config(arch)
+    tcfg, jcfg = configs(arch, n_experts=full.n_experts, top_k=full.top_k)
+    jp, tp = moe_params(jcfg)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 16, tcfg.d_model)).astype(np.float32)
+    H = (rng.random(tcfg.n_experts) * 2).astype(np.float32)
+    y, st, _ = tmoe.moe_ffn(tcfg, tp, torch.from_numpy(x), RouterState(
+        torch.from_numpy(H), torch.zeros((), dtype=torch.int32)),
+        use_kernel=True)
+    jy, jst, _ = jmoe.moe_ffn(jcfg, jp, jnp.asarray(x), JRouterState(
+        jnp.asarray(H), jnp.zeros((), jnp.int32)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(st.H.numpy(), np.asarray(jst.H), atol=1e-5)
+    assert int(st.steps) == int(jst.steps) == 1
+
+
 # ---------------------------------------------------------------------------
 # Decode step and serving engine
 # ---------------------------------------------------------------------------
@@ -224,6 +286,7 @@ def test_lm_decode_step_matches_reference_over_8_steps(arch):
         p, c, {"tokens": t}, activ_dtype=jnp.float32, router_H=H))
     rng = np.random.default_rng(5)
     before = tkernel.bp_topk.launches
+    route_before = tkernel.bp_topk_route.launches
     for _ in range(8):
         toks = rng.integers(0, tcfg.vocab, B).astype(np.int32)
         jl, jc = jstep(jparams, jc, jnp.asarray(toks), jH)
@@ -239,6 +302,35 @@ def test_lm_decode_step_matches_reference_over_8_steps(arch):
                                atol=1e-5)
     assert int(tc["layers"].pos[0]) == 8
     assert tkernel.bp_topk.launches == before      # CPU: plain version
+    assert tkernel.bp_topk_route.launches == route_before
+
+
+def test_lm_decode_step_at_granites_gate_matches_reference():
+    """granite at 3 layers with its full gate (32 experts top-8), non-zero
+    router queues: 4 decode steps through `bp_topk_route` (plain version
+    on the CPU) against the reference's, logits within rtol 1e-4 / atol
+    1e-5."""
+    tcfg, jcfg = configs("granite-moe-1b-a400m", n_layers=3, n_experts=32,
+                         top_k=8)
+    jparams = jax_params(jcfg)
+    tparams = params_from_numpy(to_numpy(jparams), "cpu")
+    B, max_len = 4, 8
+    japi, tapi = jget_model(jcfg), get_model(tcfg)
+    jc = japi.init_decode(B, max_len, jnp.float32)
+    tc = tapi.init_decode(B, max_len, torch.float32, device="cpu")
+    rng = np.random.default_rng(13)
+    H = (rng.random((3, 32)) * 3).astype(np.float32)
+    jstep = jax.jit(lambda p, c, t, H: japi.decode_step(
+        p, c, {"tokens": t}, activ_dtype=jnp.float32, router_H=H))
+    for _ in range(4):
+        toks = rng.integers(0, tcfg.vocab, B).astype(np.int32)
+        jl, jc = jstep(jparams, jc, jnp.asarray(toks), jnp.asarray(H))
+        tl, tc = tapi.decode_step(tparams, tc,
+                                  {"tokens": torch.from_numpy(toks).long()},
+                                  activ_dtype=torch.float32,
+                                  router_H=torch.from_numpy(H))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                   atol=1e-5)
 
 
 def test_engine_emits_the_references_tokens():

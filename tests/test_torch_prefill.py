@@ -10,7 +10,7 @@ float32.  Tolerances:
   * `lm_logits` and the router queues H' against the reference: the same
     experts in every layer, logits within rtol 1e-4 / atol 1e-5 (XLA and
     torch sum the matmuls and the softmax in other orders, and the port
-    routes through `bp_topk`'s plain version), H' within 1e-5;
+    routes through `bp_topk_route`'s plain version), H' within 1e-5;
   * the port's forward against its own step-by-step decode: 2e-3, the
     bound of `tests/test_models_consistency.py:38`;
   * `make_prefill_step` against `lm_logits(last_only=True)`: equal.
@@ -175,6 +175,7 @@ def test_prefill_step_is_last_position_logits(arch):
     toks = torch.from_numpy(tokens(tcfg))
     flash0 = flash_kernel.flash_attention.launches
     topk0 = topk_kernel.bp_topk.launches
+    route0 = topk_kernel.bp_topk_route.launches
     for adt in ("float32", "bfloat16"):
         rcfg = tconfigs.RunConfig(tcfg, tconfigs.SHAPES["prefill_32k"],
                                   activ_dtype=adt)
@@ -194,6 +195,7 @@ def test_prefill_step_is_last_position_logits(arch):
     # the CPU runs the plain versions: no kernel launch is counted
     assert flash_kernel.flash_attention.launches == flash0
     assert topk_kernel.bp_topk.launches == topk0
+    assert topk_kernel.bp_topk_route.launches == route0
 
 
 def test_serve_step_is_the_decode_step():
