@@ -27,11 +27,17 @@ on failure:
      decode and the prefill shape;
   3. the fleet path at full width: `run_fleet` over 1,512 pi3_reg sims (8
      registry families x topo_seeds 0-20 x 3 rates x 3 seeds, padded to the
-     atlas hull (16, 51, 4)), T=4096, chunk=512, early stop; results are
-     held to the exact LP bound; the fused slot-step kernel
-     (`bp_slot_step.cu`) launches once per slot advanced, B1 and B2 never;
-     a profiler trace counts CUDA launches per slot and the fused
-     kernel's share; then `phase_slot_step`: the fused kernel against the
+     atlas hull (16, 51, 4)), T=4096, chunk=512, early stop, each chunk
+     replays of one captured CUDA graph of 64 slots; results are held to
+     the exact LP bound; the fused slot-step kernel (`bp_slot_step.cu`)
+     launches once per slot advanced (eager launches, the 64 slots before
+     the capture, plus graph replays x the launches the graph captured),
+     B1 and B2 never; the graphed run, and a second graphed run, against
+     the eager `chunk_step` loop on the same sims: every metric and verdict
+     bit-identical, ms per batched slot of each; a profiler trace of one
+     replay, whose bp_slot_step kernels must be the 64 slots it holds,
+     gives CUDA activities and device time per slot, and the idle share
+     of a chunk of replays; then `phase_slot_step`: the fused kernel against the
      plain slot step on the card and on the CPU, teacher-forced, 256 slots
      of the 1,512 sims and 32 slots of each other policy (pi1, pi1p, pi2
      with bound pairing, pi3bar, pi3 on wireless_grid), n*, Z and the
@@ -42,7 +48,15 @@ on failure:
      port's plain path on the CPU, all 1,512 sims for 256 slots from one
      random state with the same counter-based noise: stepped from the same
      carry each slot, the two agree to rounding (see `phase_reference`);
-  5. a short wireless_grid run, so the greedy-matching branch runs;
+  5. a short wireless_grid run, so the greedy-matching branch runs; the
+     λ_max frontier (`find_lambda_max`, benchmarks/bench_fleet.py's
+     FRONTIER_SMOKE: paper_grid under pi3 and pi3_reg): lam_max / bound in
+     [0.90, 1.0], slots saved >= 0.30, one capture per search; the
+     capacity atlas (`sweep_lambda_max`, benchmarks/bench_atlas.py's
+     ATLAS_SWEEP: 504 cells, 1,512 lanes, 3 size buckets, one re-queue)
+     held to that file's gates, one capture per program; in both the
+     fused slot step launches once per batched slot, and the port's
+     numbers print beside the reference's committed ones;
   6. the MoE router (`core/router.route`) in the loop of
      benchmarks/bench_router.py: backpressure must balance better than
      plain top-k;
@@ -177,6 +191,28 @@ PREFILL_REF_B, PREFILL_REF_S = 2, 256   # the prefill's card-vs-CPU check
 #: the typical gap between neighbouring scores (~1e-3).
 NEAR_TIE_SLACK = 1e-6
 LAYER_RTOL = 1e-5       # a layer's outputs, over their largest magnitude
+
+#: benchmarks/bench_fleet.py:107-127: FRONTIER_SMOKE and its gates.
+FRONTIER = dict(targets=(("paper_grid", "pi3"), ("paper_grid", "pi3_reg")),
+                eps_b=0.05, seeds=(0, 1), T=4096, chunk=256, rel_tol=0.025)
+FRONTIER_RATIO_BAND = (0.90, 1.0)
+FRONTIER_MIN_SAVED_FRAC = 0.30
+#: benchmarks/bench_atlas.py:71-144: ATLAS_SWEEP (the "full" preset) and
+#: its gates.
+ATLAS_PRESET = "full"
+ATLAS = dict(
+    families=("paper_grid", "random_geometric", "ring", "tree", "expander",
+              "fat_tree", "wireless_grid", "ge_grid", "ge_comp_grid"),
+    topo_seeds=tuple(range(56)),
+    policy="pi3", eps_b=0.05, seeds=(0, 1, 2),
+    T=4096, chunk=512, rel_tol=0.1, max_calls=8,
+    n_buckets=3, max_requeues=1)
+ATLAS_RATIO_BAND = (0.90, 1.0)
+ATLAS_BAND_FAMILIES = ("paper_grid", "random_geometric", "ring", "tree",
+                       "expander", "fat_tree")
+ATLAS_MAX_BAND_WIDTH = 0.2
+ATLAS_GATES = dict(min_cells=500, min_lanes=1500, max_launches=450,
+                   max_bucket_launches=200, min_speedup=10.0)
 
 #: Published peaks of the H100 SXM (NVIDIA's data sheet, at 700 W): memory
 #: bytes/s, float32 operations/s outside the tensor cores, and dense
@@ -720,6 +756,22 @@ def route_activities(cfg, p, x, H, calls: int = 10):
 # Phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
+def reset_fused_counts(K) -> None:
+    """Zero the fused slot step's counts: launches made eagerly, and
+    launches made by replaying the CUDA graphs that captured it."""
+    K.slot_step_fused.launches = 0
+    K.slot_step_fused.replayed = 0
+
+
+def fused_launches(K) -> dict:
+    """The fused slot step's launches since `reset_fused_counts`: eager
+    (outside a graph; the first `GRAPH_SLOTS` slots before each capture),
+    replayed (graph replays x the launches each captured), and their sum."""
+    eager, replayed = K.slot_step_fused.launches, K.slot_step_fused.replayed
+    return {"eager": eager, "replayed": replayed,
+            "launched": eager + replayed}
+
+
 def main_jobs():
     from repro_torch.fleet import FleetJob, policy_bound_exact
     jobs, bounds = [], []
@@ -748,20 +800,24 @@ def phase_main(dev):
     dims = PadDims(N_MAIN, E_MAIN, NC_MAIN)
     K.slot_route_decide.launches = 0
     K.comp_balance_decide.launches = 0
-    K.slot_step_fused.launches = 0
+    reset_fused_counts(K)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_fleet(jobs, T=T_MAIN, chunk=CHUNK_MAIN, device=dev, dims=dims,
                     early_stop=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"bp_slot_step": K.slot_step_fused.launches,
+    fused = fused_launches(K)
+    launches = {"bp_slot_step": fused["launched"],
                 "slot_route_decide": K.slot_route_decide.launches,
                 "comp_balance_decide": K.comp_balance_decide.launches}
-    check(res.n_programs == 1, "one policy group expected")
-    check(launches["bp_slot_step"] == res.slot_steps > 0,
-          f"fused slot-step launches {launches} != slots advanced "
-          f"{res.slot_steps}")
+    check(res.n_programs == 1 and res.n_step_compiles == 1,
+          f"one policy group and one capture expected: {res.n_programs} "
+          f"groups, {res.n_step_compiles} captures")
+    check(launches["bp_slot_step"] == res.slot_steps > 0 and
+          fused["replayed"] > 0,
+          f"fused slot-step launches {fused} != slots advanced "
+          f"{res.slot_steps}, or none from the graph")
     check(launches["slot_route_decide"] == 0 and
           launches["comp_balance_decide"] == 0,
           f"the main path launched B1/B2 on their own: {launches}")
@@ -792,7 +848,7 @@ def phase_main(dev):
         f"{wall / sim_slots * 1e6:.4f} us per sim-slot, "
         f"{wall / res.slot_steps * 1e3:.4f} ms per batched slot, "
         f"verdicts {counts}, slots_saved {res.slots_saved}, "
-        f"paper_grid eff@0.95 {eff:.4f}, launches {launches}")
+        f"paper_grid eff@0.95 {eff:.4f}, launches {launches} ({fused})")
     by_family = {}
     for fam in FAMILIES:
         for f in RATE_FRACS:
@@ -827,51 +883,127 @@ def main_batch(dev):
         [j.seed for j in jobs])
 
 
-def phase_profile(dev, wall_per_slot_ms: float):
-    """CUDA activities per slot and the device's busy time per slot, from
-    a profiler trace of one 64-slot chunk at full width."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def main_runner():
+    """The runner `run_fleet` makes for the main path's jobs."""
     from repro_torch.core.policies import PolicyConfig
     from repro_torch.fleet import engine
-    jobs, inp = main_batch(dev)
-    pp = inp.pp
-    runner = engine.make_stream_runner(PolicyConfig(name="pi3_reg",
-                                                    eps_b=EPS_B),
-                                       T=64, chunk=64,
-                                       verdict=engine.resolve_verdict(
-                                           None, True))
-    carry = runner.init_carry(pp)
-    runner.advance(inp, carry)                          # warm-up slot
-    torch.cuda.synchronize()
+    return engine.make_stream_runner(
+        PolicyConfig(name="pi3_reg", eps_b=EPS_B), T=T_MAIN,
+        chunk=CHUNK_MAIN, verdict=engine.resolve_verdict(None, True))
+
+
+def phase_profile(dev):
+    """One replay of the main path's captured graph, traced: its
+    bp_slot_step kernels must be the slots the graph holds (what
+    `phase_main`'s launch count multiplies by); CUDA activities and device
+    time per slot, and the device's idle share of a chunk's time: the
+    time between CUDA events around the chunk / block replays one chunk
+    queues back to back, as `GroupLaunch.step` does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.fleet import engine
+    _, inp = main_batch(dev)
+    launch = engine.launch_for(main_runner(), inp)
+    check(launch.graph is not None, "profile: the main path's launcher "
+          "holds no captured graph")
+    graph, block = launch.graph, launch.block
+    per_chunk = CHUNK_MAIN // block
+    walls = []
+    for _ in range(3):                   # chunks on the main run's carry
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(per_chunk):
+            graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        walls.append(s.elapsed_time(e) / per_chunk)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        runner.chunk_step(inp, carry)
+        graph.replay()
         torch.cuda.synchronize()
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev_events:
-        log("profile: not measured (the profiler recorded no device "
-            "activity)")
-        return None
-    per_slot = len(dev_events) / runner.chunk
-    dev_us = sum(e.device_time for e in dev_events) / runner.chunk
     fused = [e for e in dev_events if "bp_slot_step_kernel" in e.name]
-    fused_us = sum(e.device_time for e in fused) / runner.chunk
+    check(len(fused) == block == launch.captured,
+          f"profile: one replay ran {len(fused)} bp_slot_step kernels; the "
+          f"graph holds {block} slots and captured {launch.captured}")
+    per_slot = len(dev_events) / block
+    dev_us = sum(e.device_time for e in dev_events) / block
+    fused_us = sum(e.device_time for e in fused) / block
+    wall_us = statistics.median(walls) * 1e3 / block
     kinds = {}
     for e in dev_events:
         kinds[e.name] = kinds.get(e.name, 0) + 1
-    top = sorted(kinds.items(), key=lambda kv: -kv[1])[:12]
-    idle = 1.0 - dev_us / 1e3 / wall_per_slot_ms
-    log(f"profile: {per_slot:.2f} CUDA device activities per slot "
-        f"(kernels, copies and memsets), {dev_us:.2f} us of device time per "
-        f"slot at B={len(jobs)}; against the main run's "
-        f"{wall_per_slot_ms:.4f} ms per slot the device is idle "
-        f"{idle:.4f} of the time; the fused slot step "
-        f"{len(fused) / runner.chunk:.2f} launches and {fused_us:.2f} us per "
-        f"slot, {fused_us / dev_us:.4f} of the device time; most frequent: "
-        + "; ".join(f"{n[:60]} x{c / runner.chunk:.2f}" for n, c in top))
+    top_kinds = sorted(kinds.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profile: one replay of the main path's {block}-slot graph at "
+        f"B={inp.pp.batch}: {len(fused)} bp_slot_step kernels (= slots in "
+        f"the graph), {per_slot:.2f} CUDA device activities per slot, "
+        f"{dev_us:.2f} us of device time per slot against "
+        f"{wall_us:.2f} us per slot between CUDA events around a chunk of "
+        f"{per_chunk} replays (median of {len(walls)}): the device is idle "
+        f"{1.0 - dev_us / wall_us:.4f} of a chunk; the fused slot step "
+        f"{fused_us:.2f} us per slot, {fused_us / dev_us:.4f} of the device "
+        f"time; most frequent: "
+        + "; ".join(f"{n[:60]} x{c / block:.2f}" for n, c in top_kinds))
     return per_slot
+
+
+def phase_graph_parity(dev, res, wall_graphed: float):
+    """The main path's 1,512 sims through the eager `chunk_step` loop
+    (`run_fleet`'s loop without the launcher), then the graphed `run_fleet`
+    again with its graph already captured: every metric and verdict of
+    both graphed runs bit-identical to the eager run's; ms per batched
+    slot and us per sim-slot of each, in this call."""
+    import torch
+    from repro_torch.core.queues import VERDICT_UNDECIDED
+    from repro_torch.fleet import PadDims, run_fleet
+    jobs, inp = main_batch(dev)
+    runner = main_runner()
+    carry = runner.init_carry(inp.pp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launched = 0
+    while launched < runner.n_chunks:
+        runner.chunk_step(inp, carry)
+        launched += 1
+        if launched < runner.n_chunks and bool(
+                (carry.drift.verdict != VERDICT_UNDECIDED).all()):
+            break
+    torch.cuda.synchronize()
+    wall_eager = time.perf_counter() - t0
+    out = {k: v.cpu().numpy() for k, v in
+           runner.finalize(inp, carry).items()}
+    eager = [{k: float(v[j]) for k, v in out.items()}
+             for j in range(len(jobs))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = run_fleet(jobs, T=T_MAIN, chunk=CHUNK_MAIN, device=dev,
+                     dims=PadDims(N_MAIN, E_MAIN, NC_MAIN), early_stop=True)
+    torch.cuda.synchronize()
+    wall_warm = time.perf_counter() - t0
+    slots = launched * runner.chunk
+    check(slots == res.slot_steps == warm.slot_steps,
+          f"graph parity: eager ran {slots} slots, graphed "
+          f"{res.slot_steps} and {warm.slot_steps}")
+    for name, got in (("graphed", res.metrics), ("graphed again",
+                                                  warm.metrics)):
+        differ = [i for i in range(len(jobs)) if got[i] != eager[i]]
+        check(not differ, f"graph parity: {len(differ)} sims of the "
+              f"{name} run differ from the eager run, first "
+              f"{jobs[differ[0]] if differ else None}")
+    check(warm.n_step_compiles == 1, "graph parity: the second graphed run "
+          "captured again")
+    n = len(jobs)
+    times = {"graphed (capture included)": wall_graphed,
+             "graphed, captured before": wall_warm, "eager": wall_eager}
+    log(f"graph parity: {n} sims x {slots} slots, the graphed run_fleet "
+        f"(twice) bit-identical to the eager chunk_step loop in every "
+        f"metric and verdict; " + "; ".join(
+            f"{k} {w:.3f} s, {w / slots * 1e3:.4f} ms per batched slot, "
+            f"{w / (slots * n) * 1e6:.4f} us per sim-slot"
+            for k, w in times.items())
+        + f"; eager / graphed {wall_eager / wall_warm:.2f}x ({card_line()})")
+    return {k: w / slots * 1e3 for k, w in times.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1085,6 +1217,160 @@ def phase_wireless(dev):
     log(f"wireless: 6 sims x 512 slots in {wall:.3f} s "
         f"({wall / res.slot_steps * 1e3:.4f} ms per batched slot), useful "
         f"rates {np.round(useful, 3)} vs bound {bound:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the λ_max frontier; Phase 5d: the capacity atlas
+# ---------------------------------------------------------------------------
+
+def reference_numbers(name: str) -> dict:
+    """The JAX package's committed results (a JSON file of the checkout;
+    nothing is imported), printed beside the port's."""
+    path = ROOT / name
+    return json.loads(path.read_text()) if path.is_file() else {}
+
+
+def phase_frontier(dev):
+    """benchmarks/bench_fleet.py's FRONTIER_SMOKE through the port's
+    `find_lambda_max`: paper_grid under pi3 and pi3_reg.  Gates (that
+    file's): lam_max / bound_exact in [0.90, 1.0] for each search, slots
+    saved >= 0.30 of the full slots over both, one capture per search; and
+    the fused slot step launched once per batched slot the searches ran
+    (n_calls x T less the chunks early stop skipped)."""
+    import torch
+    from repro_torch.fleet import find_lambda_max
+    from repro_torch.kernels.bp_slot import kernel as K
+    ref = reference_numbers("BENCH_baseline.json").get("frontier", {})
+    reset_fused_counts(K)
+    saved = full = slots = 0
+    out = []
+    for scenario, policy in FRONTIER["targets"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = find_lambda_max(scenario, policy, eps_b=FRONTIER["eps_b"],
+                            seeds=FRONTIER["seeds"], T=FRONTIER["T"],
+                            chunk=FRONTIER["chunk"],
+                            rel_tol=FRONTIER["rel_tol"], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lo, hi = FRONTIER_RATIO_BAND
+        check(lo <= r.ratio <= hi, f"frontier {scenario}/{policy}: "
+              f"lam_max / bound {r.ratio} outside [{lo}, {hi}]")
+        check(r.n_step_compiles == 1, f"frontier {scenario}/{policy}: "
+              f"{r.n_step_compiles} captures")
+        saved += r.slots_saved
+        full += r.full_slots
+        S = len(FRONTIER["seeds"])
+        slots += r.n_calls * FRONTIER["T"] - r.launch_slots_saved // S
+        j = ref.get("targets", {}).get(f"{scenario}/{policy}", {})
+        out.append(f"{scenario}/{policy}: lam_max {r.lam_max:.4f} of bound "
+                   f"{r.bound_exact:.4f} (ratio {r.ratio:.4f}; the "
+                   f"reference {j.get('lam_max', float('nan')):.4f} of "
+                   f"{j.get('bound_exact', float('nan')):.4f}), "
+                   f"{r.n_calls} calls ({j.get('n_calls')}), {r.n_iters} "
+                   f"halvings, slots saved {r.slots_saved_frac:.4f} "
+                   f"({j.get('slots_saved_frac', float('nan')):.4f}), "
+                   f"{r.n_step_compiles} capture, {wall:.3f} s "
+                   f"(the reference's CPU run: {j.get('wall_s', 0):.1f} s), "
+                   f"probes {[(p.rate_index, p.verdicts) for p in r.probes]}")
+    check(saved >= FRONTIER_MIN_SAVED_FRAC * full,
+          f"frontier: slots saved {saved} of {full} < "
+          f"{FRONTIER_MIN_SAVED_FRAC}")
+    fused = fused_launches(K)
+    check(fused["launched"] == slots > 0 and fused["replayed"] > 0,
+          f"frontier: fused launches {fused} != batched slots run {slots}")
+    log("frontier: " + "; ".join(out) + f"; slots saved {saved} of {full} "
+        f"({saved / full:.4f}); fused launches {fused} = batched slots; "
+        f"{card_line()}")
+    return fused["launched"]
+
+
+def phase_atlas(dev):
+    """benchmarks/bench_atlas.py's ATLAS_SWEEP through the port's
+    `sweep_lambda_max`, held to that file's gates: every cell's ratio <=
+    1 + 1e-9; every cell with lam_max 0 used all its re-queues; each banded
+    family's median ratio in [0.90, 1.0 + 1e-9] and its q10-q90 band at
+    most 0.2 wide; >= 500 cells, >= 1,500 lanes, >= 2 buckets, <= 8
+    programs, each captured once; launches within their budgets (<= 450,
+    <= 200 per bucket, summing to the total) and >= 10x fewer than the
+    sequential searches'; and the fused slot step launched once per
+    batched slot."""
+    import torch
+    from repro_torch.fleet import atlas_table, registry_cells, \
+        sweep_lambda_max
+    from repro_torch.kernels.bp_slot import kernel as K
+    ref = reference_numbers("BENCH_atlas.json").get("atlas", {})
+    c = dict(ATLAS)
+    cells = registry_cells(c.pop("families"), c.pop("topo_seeds"),
+                           policy=c.pop("policy"), eps_b=c.pop("eps_b"))
+    reset_fused_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweep_lambda_max(cells, device=dev, **c)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    table = atlas_table(res)
+    lo, hi = ATLAS_RATIO_BAND
+    for fam, row in table["families"].items():
+        for cell in row["cells"]:
+            check(cell["ratio"] <= 1.0 + 1e-9,
+                  f"atlas {fam}/ts{cell['topo_seed']}: lam_max "
+                  f"{cell['lam_max']} above the bound {cell['bound_exact']}")
+            check(cell["lam_max"] > 0.0 or
+                  cell["n_requeues"] == c["max_requeues"],
+                  f"atlas {fam}/ts{cell['topo_seed']}: collapsed bracket "
+                  f"with {cell['n_requeues']} re-queues")
+    for fam in ATLAS_BAND_FAMILIES:
+        row = table["families"][fam]
+        med, width = row["ratio_median"], row["band"]["width"]
+        check(lo <= med <= hi + 1e-9,
+              f"atlas {fam}: median ratio {med} outside [{lo}, {hi}]")
+        check(width <= ATLAS_MAX_BAND_WIDTH + 1e-9,
+              f"atlas {fam}: band width {width} > {ATLAS_MAX_BAND_WIDTH}")
+    g = ATLAS_GATES
+    check(res.n_cells >= g["min_cells"] and res.n_lanes >= g["min_lanes"],
+          f"atlas: {res.n_cells} cells, {res.n_lanes} lanes")
+    check(res.n_buckets >= 2 and res.n_programs <= 8,
+          f"atlas: {res.n_buckets} buckets, {res.n_programs} programs")
+    check(res.n_step_compiles == res.n_programs,
+          f"atlas: {res.n_step_compiles} captures for {res.n_programs} "
+          f"programs")
+    check(sum(res.bucket_launches.values()) == res.n_launches and
+          res.n_launches <= g["max_launches"] and
+          max(res.bucket_launches.values()) <= g["max_bucket_launches"],
+          f"atlas: launches {res.n_launches} by bucket "
+          f"{res.bucket_launches}")
+    check(res.launch_speedup >= g["min_speedup"],
+          f"atlas: launch speedup {res.launch_speedup:.1f}")
+    fused = fused_launches(K)
+    check(fused["launched"] == res.slot_steps > 0 and fused["replayed"] > 0,
+          f"atlas: fused launches {fused} != batched slots {res.slot_steps}")
+    ref_fam = ref.get("families", {})
+    meds = {f: (round(row["ratio_median"], 4),
+                round(ref_fam.get(f, {}).get("ratio_median", float("nan")),
+                      4))
+            for f, row in table["families"].items()}
+    log(f"atlas ({ATLAS_PRESET}): {res.n_cells} cells, {res.n_lanes} lanes, "
+        f"{res.n_buckets} buckets {[(d.n_nodes, d.n_edges, d.n_comp) for d in res.bucket_dims]}, "
+        f"{res.n_programs} programs, {res.n_step_compiles} captures, "
+        f"{res.n_launches} chunk launches (the reference "
+        f"{ref.get('n_launches')}) by bucket {res.bucket_launches}, "
+        f"{res.n_requeues} re-queues ({ref.get('n_requeues')}), "
+        f"{res.n_rewrites} rewrites, launch speedup "
+        f"{res.launch_speedup:.2f}x; {res.slot_steps} batched slots in "
+        f"{wall:.3f} s ({wall / res.slot_steps * 1e3:.4f} ms per batched "
+        f"slot, {wall / res.total_slots * 1e6:.4f} us per lane-slot; the "
+        f"reference's CPU run {ref.get('wall_s', 0):.1f} s); fused launches "
+        f"{fused}; {card_line()}")
+    log("atlas: median lam_max / bound by family, the port's and the "
+        "reference's " + json.dumps(meds))
+    log("atlas: q10-q90 bands " + json.dumps(
+        {f: [round(row["band"]["q10"], 4), round(row["band"]["q90"], 4)]
+         for f, row in table["families"].items()}) + "; undecided at the "
+        "top / re-queued " + json.dumps(
+            {f: [row["n_undecided_hi"], row["n_requeued"]]
+             for f, row in table["families"].items()}))
+    return fused["launched"], wall
 
 
 # ---------------------------------------------------------------------------
@@ -2234,7 +2520,8 @@ def main() -> int:
     rows["bp_route_decide"] = phase_route(dev, peaks)
     rows["flash_attention"] = phase_flash(dev, peaks)
     res, jobs, launches, wall = phase_main(dev)
-    phase_profile(dev, wall / res.slot_steps * 1e3)
+    phase_graph_parity(dev, res, wall)
+    phase_profile(dev)
     rows["bp_slot_step"], plain_launches = phase_slot_step(dev, peaks)
     # B1 and B2 run on the plain slot step's path only (0 launches in the
     # fleet run, phase_main checks); their launches are that path's.
@@ -2242,10 +2529,15 @@ def main() -> int:
         launches[k] = plain_launches[k]
         rows[k]["path"] = ("core.policies.slot_step_ref on the card, "
                            f"{STEP_SLOTS} slots (phase_slot_step)")
-    rows["bp_slot_step"]["path"] = "run_fleet (phase_main)"
     phase_reference(dev)
     phase_determinism(dev, res, jobs)
     phase_wireless(dev)
+    frontier_launches = phase_frontier(dev)
+    atlas_launches, _ = phase_atlas(dev)
+    rows["bp_slot_step"]["path"] = (
+        f"run_fleet, graphed (phase_main; launches counted there); "
+        f"find_lambda_max, {frontier_launches} more (phase_frontier); "
+        f"sweep_lambda_max, {atlas_launches} more (phase_atlas)")
     phase_router(dev)
     launches["bp_topk_route"] = phase_serve(dev)
     rows["bp_topk_route"]["path"] = ("Engine decode steps (phase_serve); "

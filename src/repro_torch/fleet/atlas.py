@@ -1,0 +1,423 @@
+"""Capacity atlas: a fleet of λ_max bisections in one batch per group.
+
+Port of `repro.fleet.atlas`.  `frontier.find_lambda_max` bisects one
+(scenario, topo_seed) cell at a time, every probe its own `run_fleet`
+call.  The atlas runs hundreds of (cell x seed) bisection lanes in **one
+padded batch per (policy group x size bucket)**, each lane probing its own
+cell's current grid rate: the offered rate is per-sim data of the chunk
+step.  Size buckets (`batching.make_buckets`) keep one big topology from
+inflating every small lane's padding; ``max_requeues`` re-runs cells whose
+search ended UNDECIDED at the top, or collapsed, at a doubled horizon.
+
+The host loop, per batch:
+
+  1. every cell owns a `frontier.Bisection` machine (the machine the
+     sequential path drives), and its ``len(seeds)`` lanes run the
+     machine's pending grid rate;
+  2. after each chunk (one `GroupLaunch.step`, on CUDA replays of one
+     captured graph) the host reads the [B] verdict and decision-slot
+     leaves and harvests every cell whose probe finished: all its lanes
+     decided (early stop) or the horizon's chunks elapsed;
+  3. harvested cells record into their machine, pull the next probe, and
+     get their lanes rewritten in place (`engine.make_sim_rewriter`):
+     fresh carry, t = 0, seed `fold_seed(topo_seed, rate_index, attempt,
+     seed)`, the new rate and its Poisson row, the state a standalone
+     `run_fleet` probe starts from;
+  4. cells whose machine finishes are parked: their verdict leaf is forced
+     UNSTABLE so the freeze pins their lanes while the rest bisect on.
+
+Lanes never interact (the port's noise is per sim and per slot, and each
+Poisson row depends on its own rate only), and untouched lanes pass a
+rewrite bit-unchanged, so each cell's row is bit-identical to per-cell
+`find_lambda_max` at the same `PadDims` on the same device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.graph import ComputeProblem
+from repro_torch.core.queues import VERDICT_NAMES, VERDICT_UNDECIDED
+from repro_torch.device import resolve_device
+from .batching import PadDims, from_leaves, make_buckets, pad_leaves
+from .engine import (FleetJob, VerdictConfig, _policy_group_key, launch_for,
+                     make_inputs, make_sim_rewriter, make_stream_runner,
+                     resolve_verdict)
+from .frontier import Bisection, RateProbe, bracket_indices, fold_seed
+from .report import policy_bound_exact
+from .scenarios import arrival_code, event_code, get_scenario
+
+
+@dataclasses.dataclass(frozen=True)
+class AtlasJob:
+    """One cell of the capacity atlas: a (scenario, topo_seed) instance
+    whose λ_max is bisected against its own exact LP bound."""
+
+    scenario: str
+    policy: str = "pi3"
+    topo_seed: int = 0
+    eps_b: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class AtlasRow:
+    """One cell's finished frontier search (the atlas analog of
+    `frontier.FrontierResult`, without the per-search launch accounting)."""
+
+    scenario: str
+    policy: str
+    eps_b: float
+    topo_seed: int
+    lam_max: float           # largest grid rate verified sustainable
+    bound_exact: float       # the exact regulated LP bound of this cell
+    ratio: float             # lam_max / bound_exact
+    lo: float                # final bracket: sustainable side
+    hi: float                # final bracket: unsustainable side
+    n_calls: int             # probes evaluated for this cell
+    n_iters: int             # bisection halvings
+    undecided: bool          # hi never proven unstable (UNDECIDED only)
+    hi_certain: float | None  # smallest rate with genuine UNSTABLE evidence
+    total_slots: int         # simulated slots advanced across the probes
+    full_slots: int          # slots a freeze-free search would have run
+    slots_saved: int         # full_slots - total_slots
+    probes: Tuple[RateProbe, ...]
+    bucket: int = 0          # PadDims bucket the cell's lanes ran in
+    n_requeues: int = 0      # adaptive-horizon escalations: each restarted
+                             # the search at double the horizon with a
+                             # bumped fold_seed call_index
+
+
+@dataclasses.dataclass
+class AtlasResult:
+    """The whole atlas: per-cell rows and batch-level launch accounting."""
+
+    rows: List[AtlasRow]
+    n_cells: int
+    n_lanes: int             # (cell x seed) bisection lanes advanced
+    n_programs: int          # (policy group x bucket) batches, each its
+                             # own padded shape and chunk program
+    n_launches: int          # chunks the atlas ran
+    seq_launches: int        # chunks per-cell find_lambda_max would run
+    n_rewrites: int          # in-place carry rewrites between chunks
+    n_step_compiles: int     # chunk programs of the batches' launchers:
+                             # graph captures on CUDA, launchers on the
+                             # CPU (cumulative per launcher)
+    total_slots: int
+    full_slots: int
+    slots_saved: int
+    launch_slots_saved: int  # sequential-semantics launch savings
+    dims: PadDims
+    T: int
+    chunk: int
+    bucket_dims: List[PadDims] = dataclasses.field(default_factory=list)
+    bucket_cells: Dict[int, int] = dataclasses.field(default_factory=dict)
+    bucket_launches: Dict[int, int] = dataclasses.field(default_factory=dict)
+    n_requeues: int = 0      # adaptive-horizon re-queues across cells
+    slot_steps: int = 0      # batched slot steps run, over all batches
+    device: str = ""
+
+    @property
+    def n_buckets(self) -> int:
+        return max(len(self.bucket_dims), 1)
+
+    @property
+    def launch_speedup(self) -> float:
+        """How many sequential chunks one atlas chunk replaced."""
+        return self.seq_launches / self.n_launches if self.n_launches else 0.0
+
+
+def registry_cells(families: Sequence[str], topo_seeds: Sequence[int],
+                   policy: str = "pi3", eps_b: float = 0.01
+                   ) -> List[AtlasJob]:
+    """The (family x topo_seed) atlas grid as `AtlasJob` cells."""
+    return [AtlasJob(scenario=f, policy=policy, topo_seed=int(ts),
+                     eps_b=eps_b)
+            for f in families for ts in topo_seeds]
+
+
+def sweep_lambda_max(cells: Sequence[AtlasJob], *,
+                     seeds: Sequence[int] = (0,), T: int = 4096,
+                     chunk: int = 512, window: int | None = None,
+                     rel_tol: float = 0.025,
+                     bracket: Tuple[float, float] = (0.5, 1.1),
+                     max_calls: int = 24, early_stop: bool = True,
+                     verdict: VerdictConfig | None = None,
+                     device=None, dims: PadDims | None = None,
+                     n_buckets: int = 1,
+                     max_requeues: int = 0) -> AtlasResult:
+    """Bisect λ_max for every atlas cell on ``device`` (CUDA unless the
+    caller asks for the CPU), one padded batch per (policy group x size
+    bucket) advancing all of its cells' current probes at once.
+
+    Parameters mirror `find_lambda_max`: each cell's search is driven by
+    the same `Bisection` machine on the ``rel_tol`` grid of its own exact
+    bound, with the same `fold_seed` probe seeds, so each row is
+    bit-identical to the sequential path run at the cell's bucket dims
+    (`AtlasResult.bucket_dims[row.bucket]`).  ``early_stop=True`` harvests
+    a probe as soon as all its lanes latch; ``False`` runs every probe for
+    the whole horizon.  ``n_buckets > 1`` cuts size buckets
+    (`batching.make_buckets`); an explicit ``dims`` forces one bucket
+    padded to it.  ``max_requeues > 0`` restarts a cell whose finished
+    search is UNDECIDED at its top, or collapsed (``k_lo == 0``), from its
+    first bracket with double the chunk budget, up to ``max_requeues``
+    times, its fold_seed ``call_index`` bumped to the attempt number."""
+    cells = list(cells)
+    if not cells:
+        raise ValueError("empty atlas")
+    dev = resolve_device(device)
+    seeds = tuple(seeds)
+    vcfg = resolve_verdict(verdict, early_stop)
+    S = len(seeds)
+
+    # Per-cell bound, grid step and bisection machine, with the bracket
+    # arithmetic of find_lambda_max.
+    bounds: List[float] = []
+    steps: List[float] = []
+    machines: List[Bisection] = []
+    k0: List[Tuple[int, int]] = []
+    for c in cells:
+        bound = policy_bound_exact(c.scenario, c.policy, c.eps_b,
+                                   topo_seed=c.topo_seed)
+        if bound <= 0.0:
+            raise ValueError(f"{c.scenario}: exact LP bound is {bound}; "
+                             "nothing to bisect")
+        step = rel_tol * bound
+        bounds.append(bound)
+        steps.append(step)
+        k0.append(bracket_indices(bound, step, bracket))
+        machines.append(Bisection(*k0[-1], max_calls=max_calls))
+
+    # Topologies: each distinct one built once, padded to its bucket.
+    problem_of: Dict[tuple, ComputeProblem] = {}
+    for c in cells:
+        k = (c.scenario, c.topo_seed)
+        if k not in problem_of:
+            problem_of[k] = get_scenario(c.scenario).build(c.topo_seed)
+    problem_keys = list(problem_of)
+    if dims is not None:
+        bucket_dims = [dims]
+        bucket_of = {k: 0 for k in problem_keys}
+    else:
+        bucket_dims, assignment = make_buckets(
+            [problem_of[k] for k in problem_keys], n_buckets)
+        bucket_of = {k: b for k, b in zip(problem_keys, assignment)}
+    dims = PadDims(
+        n_nodes=max(d.n_nodes for d in bucket_dims),
+        n_edges=max(d.n_edges for d in bucket_dims),
+        n_comp=max(d.n_comp for d in bucket_dims))
+    leaves_of = {k: pad_leaves(p, bucket_dims[bucket_of[k]])
+                 for k, p in problem_of.items()}
+    cell_bucket = [bucket_of[(c.scenario, c.topo_seed)] for c in cells]
+
+    # Batches: policy groups (the axis that forks control flow) x buckets,
+    # groups in insertion order, buckets ascending.
+    groups: Dict[tuple, List[int]] = {}
+    for ci, c in enumerate(cells):
+        key = _policy_group_key(FleetJob(scenario=c.scenario,
+                                         policy=c.policy, eps_b=c.eps_b,
+                                         topo_seed=c.topo_seed))
+        groups.setdefault(key, []).append(ci)
+    units: List[Tuple[int, List[int]]] = []
+    for cidx_g in groups.values():
+        by_bucket: Dict[int, List[int]] = {}
+        for ci in cidx_g:
+            by_bucket.setdefault(cell_bucket[ci], []).append(ci)
+        units += [(b, by_bucket[b]) for b in sorted(by_bucket)]
+
+    rows: List[AtlasRow | None] = [None] * len(cells)
+    attempt: List[int] = [0] * len(cells)
+    n_launches = seq_launches = n_rewrites = launch_slots_saved = 0
+    n_step_compiles = n_requeues = slot_steps = 0
+    bucket_launches: Dict[int, int] = {b: 0 for b in range(len(bucket_dims))}
+    eff_T = eff_chunk = 0
+
+    for bkt, cidx in units:
+        c0 = cells[cidx[0]]
+        cfg = FleetJob(scenario=c0.scenario, policy=c0.policy,
+                       eps_b=c0.eps_b,
+                       topo_seed=c0.topo_seed).policy_config()
+        runner = make_stream_runner(cfg, T, chunk=chunk, window=window,
+                                    verdict=vcfg)
+        eff_T, eff_chunk = runner.T, runner.chunk
+        n_chunks = runner.n_chunks
+
+        # Lane layout: S contiguous lanes per cell.
+        lane_cells = [ci for ci in cidx for _ in seeds]
+        B = len(lane_cells)
+        lane_of = {ci: slice(j * S, (j + 1) * S)
+                   for j, ci in enumerate(cidx)}
+        scen = [get_scenario(cells[ci].scenario) for ci in lane_cells]
+
+        pending: Dict[int, int] = {}
+        chunks_used: Dict[int, int] = {}
+        probes_of: Dict[int, List[RateProbe]] = {ci: [] for ci in cidx}
+        lam_host = np.zeros(B, np.float32)
+        seed_host = np.zeros(B, np.int64)
+        active: set = set()
+
+        def _assign(ci: int, k: int) -> None:
+            # call_index = attempt: first attempts replay the sequential
+            # fold_seed stream, re-queued ones draw fresh noise.
+            pending[ci] = k
+            chunks_used[ci] = 0
+            sl = lane_of[ci]
+            lam_host[sl] = np.float32(k * steps[ci])
+            seed_host[sl] = [fold_seed(cells[ci].topo_seed, k, attempt[ci], s)
+                             for s in seeds]
+
+        park0 = np.zeros(B, bool)
+        for ci in cidx:
+            k = machines[ci].next_rate_index()
+            if k is None:           # degenerate budget: decided probe-free
+                rows[ci] = _finish_row(cells[ci], bounds[ci], steps[ci],
+                                       machines[ci], [], bucket=bkt)
+                park0[lane_of[ci]] = True
+            else:
+                active.add(ci)
+                _assign(ci, k)
+
+        pp = from_leaves([leaves_of[(cells[ci].scenario, cells[ci].topo_seed)]
+                          for ci in lane_cells], bucket_dims[bkt].n_nodes,
+                         bucket_dims[bkt].n_comp, dev)
+        inp = make_inputs(pp, lam_host, [cells[ci].eps_b for ci in lane_cells],
+                          [arrival_code(s.arrival) for s in scen],
+                          [event_code(s.events) for s in scen], seed_host)
+        launch = launch_for(runner, inp)
+        launch.start(inp, max_rate=max(max(k0[ci][0] + 1, k0[ci][1])
+                                       * steps[ci] for ci in cidx))
+        rewrite = make_sim_rewriter(launch)
+        if park0.any():
+            rewrite(np.zeros(B, bool), park0)
+            n_rewrites += 1
+
+        while active:
+            launch.step()
+            n_launches += 1
+            slot_steps += runner.chunk
+            bucket_launches[bkt] += 1
+            for ci in active:
+                chunks_used[ci] += 1
+
+            # Between-chunk readout: the two [B] drift leaves only.
+            verdicts = launch.carry.drift.verdict.cpu().numpy()
+            decided_at = launch.carry.drift.decided_at.cpu().numpy()
+
+            reset = np.zeros(B, bool)
+            park = np.zeros(B, bool)
+            changed = False
+            for ci in sorted(active):
+                sl = lane_of[ci]
+                v = verdicts[sl]
+                # Adaptive horizon: attempt a probes up to n_chunks << a
+                # chunks of the same program.
+                horizon = n_chunks << attempt[ci]
+                finished = chunks_used[ci] >= horizon or (
+                    early_stop and bool(np.all(v != VERDICT_UNDECIDED)))
+                if not finished:
+                    continue
+                # Harvest: the RateProbe the sequential path would build
+                # from run_fleet's metrics.
+                k = pending[ci]
+                cell_T = runner.T << attempt[ci]
+                names = tuple(VERDICT_NAMES[int(x)] for x in v)
+                sustainable = all(n == "STABLE" for n in names)
+                d_eff = np.where(v != VERDICT_UNDECIDED, decided_at[sl],
+                                 cell_T)
+                saved = (int(np.sum(cell_T - d_eff)) if vcfg.freeze else 0)
+                probes_of[ci].append(RateProbe(
+                    rate_index=k, call_index=attempt[ci],
+                    lam=k * steps[ci],
+                    sustainable=sustainable, verdicts=names,
+                    decided_at=tuple(int(x) for x in d_eff),
+                    slots_run=S * cell_T - saved, slots_saved=saved,
+                    undecided=not sustainable and "UNSTABLE" not in names))
+                seq_launches += chunks_used[ci]
+                launch_slots_saved += \
+                    S * (horizon - chunks_used[ci]) * runner.chunk
+                machines[ci].record(k, sustainable,
+                                    probes_of[ci][-1].undecided)
+                k2 = machines[ci].next_rate_index()
+                if k2 is None and (machines[ci].undecided_hi
+                                   or machines[ci].k_lo == 0) \
+                        and attempt[ci] < max_requeues:
+                    # Re-queue: the bracket top is blocked by UNDECIDED
+                    # evidence only, or the bracket collapsed (at rates far
+                    # below capacity a slow gradient fill can read as
+                    # UNSTABLE).  Restart from the first bracket with a
+                    # doubled chunk budget and a bumped call_index.
+                    attempt[ci] += 1
+                    n_requeues += 1
+                    machines[ci] = Bisection(*k0[ci], max_calls=max_calls)
+                    k2 = machines[ci].next_rate_index()
+                if k2 is None:
+                    active.discard(ci)
+                    park[sl] = True
+                    rows[ci] = _finish_row(cells[ci], bounds[ci], steps[ci],
+                                           machines[ci], probes_of[ci],
+                                           bucket=bkt,
+                                           n_requeues=attempt[ci])
+                else:
+                    reset[sl] = True
+                    _assign(ci, k2)
+                changed = True
+            if changed and active:
+                # No rewrite once the batch drains: nothing runs again.
+                rewrite(reset, park, lam_host, seed_host)
+                n_rewrites += 1
+        n_step_compiles += launch.n_compiles
+
+    done_rows = [r for r in rows if r is not None]
+    assert len(done_rows) == len(cells)
+    n_bucket_cells: Dict[int, int] = {}
+    for b in cell_bucket:
+        n_bucket_cells[b] = n_bucket_cells.get(b, 0) + 1
+    return AtlasResult(
+        rows=done_rows, n_cells=len(cells), n_lanes=len(cells) * S,
+        n_programs=len(units), n_launches=n_launches,
+        seq_launches=seq_launches, n_rewrites=n_rewrites,
+        n_step_compiles=n_step_compiles,
+        total_slots=sum(r.total_slots for r in done_rows),
+        full_slots=sum(r.full_slots for r in done_rows),
+        slots_saved=sum(r.slots_saved for r in done_rows),
+        launch_slots_saved=launch_slots_saved,
+        dims=dims, T=eff_T, chunk=eff_chunk,
+        bucket_dims=list(bucket_dims),
+        bucket_cells=n_bucket_cells,
+        bucket_launches=dict(bucket_launches),
+        n_requeues=n_requeues, slot_steps=slot_steps, device=str(dev))
+
+
+def sweep_policy_surface(families: Sequence[str],
+                         topo_seeds: Sequence[int], *,
+                         policies: Sequence[str] = ("pi3", "pi3_reg",
+                                                    "pi3bar"),
+                         eps_b: float = 0.01, **kw) -> AtlasResult:
+    """Atlas over policies: one sweep of (policy x family x topo_seed),
+    every policy on the same topologies against the same per-cell exact
+    bounds.  Pivot the rows with `report.policy_surface_table`; keyword
+    args pass through to `sweep_lambda_max`."""
+    cells = [AtlasJob(scenario=f, policy=p, topo_seed=int(ts), eps_b=eps_b)
+             for p in policies for f in families for ts in topo_seeds]
+    return sweep_lambda_max(cells, **kw)
+
+
+def _finish_row(cell: AtlasJob, bound: float, step: float, bis: Bisection,
+                probes: Sequence[RateProbe], bucket: int = 0,
+                n_requeues: int = 0) -> AtlasRow:
+    full = sum(p.slots_run + p.slots_saved for p in probes)
+    run_slots = sum(p.slots_run for p in probes)
+    return AtlasRow(
+        scenario=cell.scenario, policy=cell.policy, eps_b=cell.eps_b,
+        topo_seed=cell.topo_seed,
+        lam_max=bis.k_lo * step, bound_exact=bound,
+        ratio=bis.k_lo * step / bound,
+        lo=bis.k_lo * step, hi=bis.k_hi * step,
+        n_calls=len(probes), n_iters=bis.n_iters,
+        undecided=bis.undecided_hi,
+        hi_certain=(None if bis.k_hi_certain is None
+                    else bis.k_hi_certain * step),
+        total_slots=run_slots, full_slots=full,
+        slots_saved=full - run_slots,
+        probes=tuple(probes), bucket=bucket, n_requeues=n_requeues)

@@ -21,6 +21,16 @@ fleet state exists once and horizons are memory-O(1).  With
 whole carry through unchanged (its slot counter included, so its noise
 stream stays pinned), and a group stops once every sim has decided.
 
+`run_fleet` advances a group through a `GroupLaunch` (`make_group_launch`,
+the counterpart of the reference's compiled chunk programs): the run's
+per-sim constants and its carry live in tensors allocated once per (policy
+group x batch shape) and reused by every later run of that shape.  On CUDA
+a chunk replays one captured CUDA graph of `GRAPH_SLOTS` slots, the chunk
+step's few hundred launches per slot made by the host once, at capture;
+on the CPU it runs the eager `StreamRunner.chunk_step`.  Between chunks
+`make_sim_rewriter` restarts or parks single sims in place (the capacity
+atlas moves each lane to its next probe that way).
+
 Randomness comes from the counter-based stream of
 `repro_torch.sim.workload`, keyed by (job seed, the sim's own slot, draw
 site, element), so a job's metrics do not depend on the batch it runs in.
@@ -30,6 +40,8 @@ site, element), so a job's metrics do not depend on the batch it runs in.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -39,8 +51,10 @@ from repro_torch.core.graph import ComputeProblem
 from repro_torch.core.policies import PolicyConfig, slot_step
 from repro_torch.core.queues import (DriftStats, NetState, VERDICT_NAMES,
                                      VERDICT_STABLE, VERDICT_UNDECIDED,
-                                     drift_verdict_update, init_state)
+                                     VERDICT_UNSTABLE, drift_verdict_update,
+                                     init_state)
 from repro_torch.device import resolve_device, tree_leaves
+from repro_torch.kernels.bp_slot.kernel import slot_step_fused
 from repro_torch.kernels.bp_slot.ref import kahan_add
 from repro_torch.sim import workload
 from .batching import PadDims, PaddedProblem, from_leaves, pad_leaves
@@ -405,6 +419,210 @@ def stream_simulate(problem: ComputeProblem, cfg: PolicyConfig, lam: float,
     return {k: float(v[0]) for k, v in out.items()}
 
 
+#: Slots one captured CUDA graph advances; a chunk replays it
+#: chunk / gcd(chunk, GRAPH_SLOTS) times.  At the fleet's ≈380 launches a
+#: slot, a graph of 64 slots holds about 24,000 nodes.
+GRAPH_SLOTS = 64
+
+
+def _write(dst, src) -> None:
+    """Copy every tensor of tree ``src`` into the same leaf of ``dst``."""
+    for d, s_ in zip(tree_leaves(dst), tree_leaves(src)):
+        if isinstance(d, torch.Tensor):
+            d.copy_(s_)
+
+
+class GroupLaunch:
+    """The chunk step of one policy group at one batch shape, on tensors
+    allocated once: the port's counterpart of the reference's compiled
+    chunk-step programs (`repro.fleet.engine.make_group_launch`).
+
+    ``inp`` (the `RunInputs`) and ``carry`` are static: `start` copies a
+    run's per-sim constants into them and resets the carry, `step`
+    advances every sim by one chunk in place, `rewrite` (see
+    `make_sim_rewriter`) restarts or parks single sims between chunks.
+    Nothing rebinds them but a wider Poisson table (below), which drops
+    the graph, so a graph captured over them stays valid.
+
+    On CUDA the first `step` advances `block` slots eagerly (which loads
+    every kernel a slot runs), then captures those same `block` slots into
+    one `torch.cuda.CUDAGraph` and replays it for the rest of the chunk and
+    for every later chunk; a failed capture raises.  The Poisson table is
+    sized once, for the largest rate `start` is told the lanes may probe;
+    a rate that needs a wider table reallocates it and captures again.
+    ``n_compiles`` counts the captures (on the CPU, where `step` runs
+    `StreamRunner.chunk_step`, it is 1: the launcher made), ``replays``
+    the graph replays, ``captured`` the fused slot-step launches one
+    replay makes."""
+
+    def __init__(self, runner: StreamRunner, batch: int, dims,
+                 device: torch.device, arrival_codes: Tuple[int, ...],
+                 event_codes: Tuple[int, ...]):
+        self.runner = runner
+        self.batch = batch
+        self.dims = dims
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.codes = (arrival_codes, event_codes)
+        self.block = math.gcd(runner.chunk, GRAPH_SLOTS)
+        self.inp: RunInputs | None = None
+        self.carry: Carry | None = None
+        self.graph = None
+        self.n_compiles = 0 if self.device.type == "cuda" else 1
+        self.replays = 0
+        self.captured = 0
+        self._akind = np.zeros(batch, np.int32)
+
+    def _table(self, lam, akind, width: int = 0) -> torch.Tensor:
+        return workload.poisson_table(arrival_rates(lam, akind),
+                                      device=self.device, width=width)
+
+    def _grow(self, width: int) -> None:
+        """A wider Poisson table (1.0 in the new columns); the graph
+        captured over the old one is dropped."""
+        old = self.inp.cdf
+        cdf = torch.ones((self.batch, width), dtype=old.dtype,
+                         device=self.device)
+        cdf[:, :old.shape[1]] = old
+        self.inp = dataclasses.replace(self.inp, cdf=cdf)
+        self.graph = None
+
+    def start(self, inp: RunInputs, max_rate: float = 0.0) -> None:
+        """Load a run's per-sim constants and reset every sim's carry.
+        ``max_rate`` is the largest offered rate a later `rewrite` may give
+        a lane; the Poisson table is sized for it."""
+        pp = inp.pp
+        shape = (pp.batch, pp.n_nodes, pp.n_edges, pp.n_comp)
+        want = (self.batch, self.dims.n_nodes, self.dims.n_edges,
+                self.dims.n_comp)
+        if shape != want or (inp.arrival_codes, inp.event_codes) != \
+                self.codes or pp.device != self.device:
+            raise ValueError(f"GroupLaunch for {want} {self.codes} on "
+                             f"{self.device} got {shape} "
+                             f"{(inp.arrival_codes, inp.event_codes)} on "
+                             f"{pp.device}")
+        self._akind = inp.akind.cpu().numpy()
+        lam = inp.lam.cpu().numpy()
+        width = max(inp.cdf.shape[1], self._table(
+            np.maximum(lam, np.float32(max_rate)), self._akind).shape[1])
+        if self.inp is None:
+            self.inp = dataclasses.replace(
+                inp, pp=dataclasses.replace(pp, **{
+                    f.name: getattr(pp, f.name).clone()
+                    for f in dataclasses.fields(pp)
+                    if isinstance(getattr(pp, f.name), torch.Tensor)}),
+                **{k: getattr(inp, k).clone()
+                   for k in ("lam", "eps_b", "akind", "ekind", "seed")},
+                cdf=self._table(lam, self._akind, width))
+            self.carry = self.runner.init_carry(self.inp.pp)
+            return
+        if width > self.inp.cdf.shape[1]:
+            self._grow(width)
+        _write(self.inp.pp, pp)
+        for k in ("lam", "eps_b", "akind", "ekind", "seed"):
+            getattr(self.inp, k).copy_(getattr(inp, k))
+        self.inp.cdf.copy_(self._table(lam, self._akind,
+                                       self.inp.cdf.shape[1]))
+        _write(self.carry, self.runner.init_carry(self.inp.pp))
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        before = slot_step_fused.captured
+        with torch.cuda.graph(graph):
+            for _ in range(self.block):
+                self.runner.advance(self.inp, self.carry)
+        self.captured = slot_step_fused.captured - before
+        self.graph = graph
+        self.n_compiles += 1
+
+    def step(self) -> None:
+        """Advance every sim by one chunk of slots, in place."""
+        if self.device.type != "cuda":
+            self.runner.chunk_step(self.inp, self.carry)
+            return
+        replays = self.runner.chunk // self.block
+        if self.graph is None:
+            for _ in range(self.block):
+                self.runner.advance(self.inp, self.carry)
+            self._capture()
+            replays -= 1
+        for _ in range(replays):
+            self.graph.replay()
+        self.replays += replays
+        slot_step_fused.replayed += replays * self.captured
+
+    def rewrite(self, reset, park, lam=None, seed=None) -> None:
+        """The per-sim rewrite between chunks (`make_sim_rewriter`)."""
+        reset = np.asarray(reset, bool).reshape(-1)
+        park = np.asarray(park, bool).reshape(-1)
+        if reset.shape != (self.batch,) or park.shape != (self.batch,):
+            raise ValueError(f"reset and park must be [{self.batch}] masks")
+        lanes = np.flatnonzero(reset)
+        if lanes.size:
+            lam = np.asarray(lam, np.float32).reshape(-1)[lanes]
+            seed = np.asarray(seed, np.int64).reshape(-1)[lanes]
+            rows = self._table(lam, self._akind[lanes],
+                               self.inp.cdf.shape[1])
+            if rows.shape[1] > self.inp.cdf.shape[1]:
+                self._grow(rows.shape[1])
+            idx = torch.as_tensor(lanes, device=self.device)
+            mask = torch.as_tensor(reset, device=self.device)
+            fresh = self.runner.init_carry(self.inp.pp)
+            for o, f in zip(tree_leaves(self.carry), tree_leaves(fresh)):
+                take = mask.view(-1, *([1] * (o.dim() - 1)))
+                o.copy_(torch.where(take, f, o))
+            self.inp.lam.index_copy_(0, idx, torch.as_tensor(
+                lam, device=self.device))
+            self.inp.seed.index_copy_(0, idx, torch.as_tensor(
+                seed, device=self.device))
+            self.inp.cdf.index_copy_(0, idx, rows)
+        if park.any():
+            v = self.carry.drift.verdict
+            v.copy_(torch.where(torch.as_tensor(park, device=self.device),
+                                VERDICT_UNSTABLE, v))
+
+
+@functools.lru_cache(maxsize=16)
+def make_group_launch(runner: StreamRunner, batch: int, dims,
+                      device: torch.device, arrival_codes: Tuple[int, ...],
+                      event_codes: Tuple[int, ...]) -> GroupLaunch:
+    """The `GroupLaunch` of one policy group's runner at one batch shape
+    (``batch`` sims padded to ``dims``, the arrival and event models
+    present), memoized like the reference's: every later run of the same
+    shape, a frontier's next probe say, reuses its tensors and its captured
+    graph."""
+    return GroupLaunch(runner, batch, dims, device, arrival_codes,
+                       event_codes)
+
+
+def launch_for(runner: StreamRunner, inp: RunInputs) -> GroupLaunch:
+    """`make_group_launch` for the shape of ``inp``."""
+    pp = inp.pp
+    return make_group_launch(runner, pp.batch,
+                             PadDims(pp.n_nodes, pp.n_edges, pp.n_comp),
+                             pp.device, inp.arrival_codes, inp.event_codes)
+
+
+def make_sim_rewriter(launch: GroupLaunch):
+    """The per-sim carry rewrite of the capacity atlas, on ``launch``'s
+    static tensors: ``rewrite(reset, park, lam=None, seed=None)``, with
+    [B] bool masks, between chunks (port of the reference's
+    `make_sim_rewriter`).
+
+      * ``reset``: the lane starts its next probe.  Its carry becomes a
+        fresh `init_carry` (t = 0 included, so its noise stream restarts
+        under the new seed), and its offered rate, noise seed and Poisson
+        row become ``lam[lane]``, ``seed[lane]`` and that rate's row.
+      * ``park``: the lane's search is over.  Its verdict leaf becomes
+        UNSTABLE, so under ``freeze`` its carry stays fixed from then on.
+
+    Everything is written in place (``copy_``, ``index_copy_``) into the
+    tensors a captured graph reads, and a lane in neither mask keeps every
+    bit (``where(False, fresh, old)`` is ``old``)."""
+    return launch.rewrite
+
+
 @dataclasses.dataclass
 class FleetResult:
     jobs: List[FleetJob]
@@ -419,6 +637,9 @@ class FleetResult:
                                   # whole group had decided
     slot_steps: int = 0           # batched slot steps run, over all groups
     device: str = ""
+    n_step_compiles: int = 0      # chunk programs of the groups' launchers:
+                                  # graph captures on CUDA, launchers on the
+                                  # CPU (cumulative per launcher)
 
     def column(self, name: str) -> np.ndarray:
         return np.array([m[name] for m in self.metrics])
@@ -439,13 +660,18 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
               window: int | None = None, device=None,
               dims: PadDims | None = None,
               early_stop: bool = False,
-              verdict: VerdictConfig | None = None) -> FleetResult:
+              verdict: VerdictConfig | None = None,
+              max_rate: float = 0.0) -> FleetResult:
     """Run the whole sweep, one batch per policy group, on ``device``
     (CUDA unless the caller asks for the CPU).
 
-    ``early_stop=True`` freezes decided sims inside their batch and stops a
-    group as soon as every sim in it has decided (the verdict leaf is read
-    back between chunks)."""
+    Each group runs through its `GroupLaunch` (on CUDA, replays of one
+    captured chunk).  ``early_stop=True`` freezes decided sims inside their
+    batch and stops a group as soon as every sim in it has decided (the
+    verdict leaf is read back between chunks).  ``max_rate`` sizes the
+    Poisson tables for offered rates up to it, so that later calls of the
+    same shape with rates up to it replay the same graph (the frontier
+    passes its bracket's top); no metric depends on it."""
     dev = resolve_device(device)
     jobs = list(jobs)
     vcfg = resolve_verdict(verdict, early_stop)
@@ -463,7 +689,7 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
 
     metrics: List[Dict[str, float] | None] = [None] * len(jobs)
     eff_T = eff_win = 0
-    launch_saved = slot_steps = 0
+    launch_saved = slot_steps = n_compiles = 0
     for idxs in groups.values():
         cfg = jobs[idxs[0]].policy_config()
         runner = make_stream_runner(cfg, T, chunk=chunk, window=window,
@@ -477,18 +703,20 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
             [arrival_code(get_scenario(j.scenario).arrival) for j in group],
             [event_code(get_scenario(j.scenario).events) for j in group],
             [j.seed for j in group])
-        carry = runner.init_carry(pp)
+        launch = launch_for(runner, inp)
+        launch.start(inp, max_rate)
         launched = 0
         while launched < runner.n_chunks:
-            runner.chunk_step(inp, carry)
+            launch.step()
             launched += 1
             if early_stop and launched < runner.n_chunks and bool(
-                    (carry.drift.verdict != VERDICT_UNDECIDED).all()):
+                    (launch.carry.drift.verdict != VERDICT_UNDECIDED).all()):
                 break
         slot_steps += launched * runner.chunk
         launch_saved += len(idxs) * (runner.n_chunks - launched) * runner.chunk
+        n_compiles += launch.n_compiles
         out = {k: v.cpu().numpy() for k, v in
-               runner.finalize(inp, carry).items()}
+               runner.finalize(launch.inp, launch.carry).items()}
         for j, i in enumerate(idxs):
             metrics[i] = {k: float(v[j]) for k, v in out.items()}
     return FleetResult(jobs=jobs, metrics=metrics, n_programs=len(groups),
@@ -496,4 +724,5 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
                        slots_saved=int(sum(m["slots_saved"]
                                            for m in metrics)),
                        launch_slots_saved=launch_saved,
-                       slot_steps=slot_steps, device=str(dev))
+                       slot_steps=slot_steps, device=str(dev),
+                       n_step_compiles=n_compiles)

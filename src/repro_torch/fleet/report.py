@@ -1,6 +1,7 @@
 """Capacity/efficiency reporting: fleet sweeps vs the Theorem-4 LP bound.
 
-Port of `repro.fleet.report` (the atlas tables come with the atlas).  For
+Port of `repro.fleet.report`, the atlas tables (`atlas_table`,
+`policy_surface_table`) included.  For
 every scenario instance the multicommodity-flow LP
 (`repro_torch.core.capacity.capacity_upper_bound`) gives its capacity;
 offered rates are swept as fractions of each policy's operative bound and
@@ -139,6 +140,127 @@ def sweep_jobs(scenario_policies: Dict[str, Sequence[str]],
                                          topo_seed=topo_seed,
                                          eps_b=float(eps_b)))
     return jobs
+
+
+def _ratio_band(ratios: np.ndarray) -> dict:
+    """The per-family λ_max confidence band: q10/q90 of
+    the ratio distribution over the family's (cell × topo_seed) rows plus
+    the band width.  Quantiles use the ``lower`` method so the band is a
+    pair of *measured* cell ratios (deterministic, dispatch-order
+    invariant) rather than an interpolation artifact."""
+    q10 = float(np.quantile(ratios, 0.10, method="lower"))
+    q90 = float(np.quantile(ratios, 0.90, method="lower"))
+    return {"q10": q10, "q90": q90, "width": q90 - q10}
+
+
+def atlas_table(result) -> dict:
+    """JSON-serializable capacity-atlas table.
+
+    Takes an `atlas.AtlasResult` (duck-typed: anything with its fields
+    works, which keeps this module import-free of `fleet.atlas`) and
+    summarizes the measured-vs-LP frontier per scenario family: ratio
+    median/min/max and the q10–q90 seed-replication band over the
+    family's cells, how many cells ended UNDECIDED at the bracket top
+    (horizon-limited localization, DESIGN.md §8) vs proven UNSTABLE, how
+    many were rescued by adaptive re-queues, plus the fleet-level
+    launch + bucket accounting the atlas bench gates on."""
+    fam: Dict[str, list] = {}
+    for r in result.rows:
+        fam.setdefault(r.scenario, []).append(r)
+    families = {}
+    # Canonical order — (policy, topo_seed) within a family, families by
+    # name — so the table is invariant to cell dispatch order and seed-
+    # band entries diff cleanly in CI.
+    for scen in sorted(fam):
+        rows = sorted(fam[scen], key=lambda r: (r.policy, r.topo_seed))
+        ratios = np.array([r.ratio for r in rows])
+        families[scen] = {
+            "n_cells": len(rows),
+            "ratio_median": float(np.median(ratios)),
+            "ratio_min": float(ratios.min()),
+            "ratio_max": float(ratios.max()),
+            "band": _ratio_band(ratios),
+            "n_undecided_hi": int(sum(r.undecided for r in rows)),
+            "n_requeued": int(sum(r.n_requeues > 0 for r in rows)),
+            "n_calls_mean": float(np.mean([r.n_calls for r in rows])),
+            "bound_exact_mean": float(np.mean([r.bound_exact
+                                               for r in rows])),
+            "cells": [
+                {"topo_seed": r.topo_seed, "lam_max": r.lam_max,
+                 "bound_exact": r.bound_exact, "ratio": r.ratio,
+                 "lo": r.lo, "hi": r.hi, "n_calls": r.n_calls,
+                 "undecided_hi": bool(r.undecided),
+                 "hi_certain": r.hi_certain,
+                 "bucket": r.bucket, "n_requeues": r.n_requeues}
+                for r in rows],
+        }
+    return {
+        "n_cells": result.n_cells,
+        "n_lanes": result.n_lanes,
+        "n_programs": result.n_programs,
+        "n_launches": result.n_launches,
+        "seq_launches": result.seq_launches,
+        "launch_speedup": result.launch_speedup,
+        "n_rewrites": result.n_rewrites,
+        "n_step_compiles": result.n_step_compiles,
+        "slots_saved": result.slots_saved,
+        "full_slots": result.full_slots,
+        "launch_slots_saved": result.launch_slots_saved,
+        "pad_dims": {"n_nodes": result.dims.n_nodes,
+                     "n_edges": result.dims.n_edges,
+                     "n_comp": result.dims.n_comp},
+        "n_buckets": result.n_buckets,
+        "bucket_dims": [{"n_nodes": d.n_nodes, "n_edges": d.n_edges,
+                         "n_comp": d.n_comp}
+                        for d in result.bucket_dims],
+        "bucket_cells": {str(b): int(n)
+                         for b, n in sorted(result.bucket_cells.items())},
+        "bucket_launches": {str(b): int(n)
+                            for b, n in
+                            sorted(result.bucket_launches.items())},
+        "n_requeues": result.n_requeues,
+        "T": result.T, "chunk": result.chunk,
+        "families": families,
+    }
+
+
+def policy_surface_table(result) -> dict:
+    """Pivot an atlas-over-policies sweep (`atlas.sweep_policy_surface`)
+    into the policy-surface table: per (policy × family) ratio medians and
+    q10–q90 bands over the shared topology grid, so policies compare on
+    identical cells against identical exact bounds.  The
+    per-family ``gap_vs`` entries report each policy's median-ratio gap
+    to the best policy on that family."""
+    surf: Dict[str, Dict[str, list]] = {}
+    for r in result.rows:
+        surf.setdefault(r.policy, {}).setdefault(r.scenario, []).append(r)
+    policies = {}
+    for pol in sorted(surf):        # canonical order, like atlas_table
+        fams = surf[pol]
+        entry = {}
+        for scen in sorted(fams):
+            rows = fams[scen]
+            ratios = np.array([r.ratio for r in rows])
+            entry[scen] = {
+                "n_cells": len(rows),
+                "ratio_median": float(np.median(ratios)),
+                "band": _ratio_band(ratios),
+                "n_undecided_hi": int(sum(r.undecided for r in rows)),
+            }
+        policies[pol] = entry
+    fam_names = sorted({s for fams in surf.values() for s in fams})
+    best = {scen: max(policies[p][scen]["ratio_median"]
+                      for p in policies if scen in policies[p])
+            for scen in fam_names}
+    for pol, entry in policies.items():
+        for scen, row in entry.items():
+            row["gap_vs_best"] = best[scen] - row["ratio_median"]
+    return {
+        "n_cells": result.n_cells,
+        "n_policies": len(policies),
+        "families": fam_names,
+        "policies": policies,
+    }
 
 
 def capacity_report(scenario_policies: Dict[str, Sequence[str]],

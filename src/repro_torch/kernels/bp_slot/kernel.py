@@ -16,7 +16,12 @@ checks device, dtype, shape and contiguity, then:
 Each wrapper counts its kernel launches in a plain integer attribute
 (``slot_route_decide.launches``, ``comp_balance_decide.launches``,
 ``slot_step_fused.launches``), so a run can show that its main path went
-through the kernels.  Only CUDA launches count.
+through the kernels.  Only CUDA launches count.  The fused slot step also
+runs inside the CUDA graphs of `repro_torch.fleet.engine.GroupLaunch`: a
+call made while its stream is being captured launches nothing and counts
+in ``slot_step_fused.captured``; each replay of such a graph launches the
+kernels it captured, and the graph's owner adds them to
+``slot_step_fused.replayed``.
 """
 from __future__ import annotations
 
@@ -267,13 +272,18 @@ def slot_step_fused(state: dict, problem: dict, arrivals: torch.Tensor,
                 f"slot_step_fused: a sim of shape N={N}, NC={NC}, E={E} does "
                 f"not fit one block's shared memory")
         _raise_on(err, "slot_step_fused")
-        slot_step_fused.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            slot_step_fused.captured += 1
+        else:
+            slot_step_fused.launches += 1
     metrics.update(delivered=new["delivered"],
                    delivered_useful=new["delivered_useful"])
     return new, metrics
 
 
 slot_step_fused.launches = 0
+slot_step_fused.captured = 0
+slot_step_fused.replayed = 0
 
 
 def slot_step_smem_bytes(N: int, NC: int, E: int) -> int:

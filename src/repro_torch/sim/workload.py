@@ -14,7 +14,10 @@ and the GPU give the same draws bit for bit.
 
 Poisson counts come from a per-sim inverse-CDF table built once per run
 (each sim's rate is fixed for a run), so a slot's draw is one comparison
-against the table instead of a sampling loop.
+against the table instead of a sampling loop.  Each row is padded with 1.0
+beyond its own width, so a table may be wider than a row needs (the
+graphed chunk of `fleet.engine` sizes it once for the largest rate it may
+probe) without changing a draw.
 """
 from __future__ import annotations
 
@@ -84,16 +87,25 @@ def uniform64(seed: torch.Tensor, t: torch.Tensor, site: int,
 POISSON_TAIL = 1e-12
 
 
-def poisson_table(rates, device=None) -> torch.Tensor:
+def poisson_width(rate: float) -> int:
+    """Columns of one Poisson table row at ``rate``: the smallest count
+    that leaves less than `POISSON_TAIL` mass beyond the row."""
+    return int(stats.poisson.isf(POISSON_TAIL, rate)) + 2 if rate > 0 else 1
+
+
+def poisson_table(rates, device=None, width: int = 0) -> torch.Tensor:
     """[B, K] float64 Poisson CDFs, cdf[b, k] = P(X <= k) for rate[b].
 
-    K is the smallest column count that leaves less than `POISSON_TAIL`
-    mass beyond the table for every rate of the batch."""
+    Row b holds its own `poisson_width(rate[b])` columns and 1.0 beyond
+    them (a uniform in [0, 1) never reaches 1.0), so a row, and every draw
+    from it, depends on its own rate only, never on the batch it is built
+    in.  K is the widest row's width, or ``width`` when that is larger."""
     rates = np.asarray(rates, np.float64).reshape(-1)
-    top = float(rates.max()) if rates.size else 0.0
-    K = int(stats.poisson.isf(POISSON_TAIL, top)) + 2 if top > 0 else 1
-    cdf = stats.poisson.cdf(np.arange(K)[None, :], rates[:, None])
-    cdf[rates <= 0] = 1.0
+    own = np.array([poisson_width(r) for r in rates], np.int64)
+    K = max(int(own.max()) if rates.size else 1, int(width))
+    cols = np.arange(K)[None, :]
+    cdf = stats.poisson.cdf(cols, rates[:, None])
+    cdf[(cols >= own[:, None]) | (rates[:, None] <= 0)] = 1.0
     return torch.as_tensor(cdf, dtype=torch.float64, device=device)
 
 
