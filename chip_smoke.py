@@ -57,6 +57,21 @@ on failure:
      held to that file's gates, one capture per program; in both the
      fused slot step launches once per batched slot, and the port's
      numbers print beside the reference's committed ones;
+ 5c. serving with admission control: benchmarks/bench_serving.py's
+     SERVING_SMOKE through `serving_report` (paper_grid, pi3_reg, bursty,
+     0.95x and 1.3x the bound, 2 seeds, T=4096) under that file's gates,
+     beside the reference's committed rows; `run_serving` at full width
+     (`phase_serving`: the main path's 1,512 lanes facing bursty_mix,
+     streamed to a JSONL file): one capture, one fused slot step per
+     slot, finite metrics, delivered QPS within 1.02x each bound, class
+     fairness of the shedding lanes, gate flips within half the windows,
+     a valid stream of one record per chunk, ms per batched slot with
+     the stream off and on, per-family medians, one traced replay;
+     `phase_serving_parity`: 64 lanes graphed and eager, stream off and
+     on, bit-identical, a diurnal_mix run (offered rate within 2% of
+     lam), the outage shed-and-recover check; `phase_stream`: the fleet
+     run of phase 3, the frontier and a small atlas with the stream on,
+     bit-identical to the stream off, valid records, wall times;
   6. the MoE router (`core/router.route`) in the loop of
      benchmarks/bench_router.py: backpressure must balance better than
      plain top-k;
@@ -84,9 +99,10 @@ on failure:
      rows spread over the sequence against a plain computation within bf16
      rounding, and device times of the sm90 kernel, of the CUDA-core
      kernel in float32, of the plain version (at S=4,096: its scores do
-     not fit at 32k) and of SDPA beside the bound (both products at the
-     bf16 tensor-core rate) and the sm90 kernel's own floor (1.5x: P.V
-     runs for p_hi and p_lo);
+     not fit at 32k) and of SDPA (bf16, and float32 beside the CUDA-core
+     kernel) beside the bound (both products at the bf16 tensor-core
+     rate) and the sm90 kernel's own floor (1.5x: P.V runs for p_hi and
+     p_lo);
  11. the prefill path at full width: granite-moe-1b-a400m (24 layers,
      random float32 weights from a seed) through `make_prefill_step` at
      B=1, S=32,768, bfloat16 activations, 2 timed prefills after a short
@@ -213,6 +229,31 @@ ATLAS_BAND_FAMILIES = ("paper_grid", "random_geometric", "ring", "tree",
 ATLAS_MAX_BAND_WIDTH = 0.2
 ATLAS_GATES = dict(min_cells=500, min_lanes=1500, max_launches=450,
                    max_bucket_launches=200, min_speedup=10.0)
+
+#: benchmarks/bench_serving.py:39-55: SERVING_SMOKE and its gates.
+SERVING_SMOKE = dict(scenario="paper_grid", policy="pi3_reg",
+                     trace="bursty", rate_fracs=(0.95, 1.3),
+                     seeds=(0, 1), T=4096, chunk=512, eps_b=0.05)
+SERVING_MIN_RATIO = 0.9      # delivered_qps / bound_exact floor
+SERVING_MAX_SHED = 0.02      # shed fraction ceiling (gate must stay open)
+SERVING_P99_MAX = 512.0      # p99 sojourn ceiling, slots
+SERVING_OVERLOAD_FRAC = 1.3
+SERVING_OVERLOAD_MIN_SHED = 0.10
+SERVING_OVERLOAD_RATE_SLACK = 1.05
+#: phase_serving: the main path's 1,512 jobs facing the fairness-stress
+#: trace (half bursty, half steady); tests/test_serving.py:293-308's rule:
+#: a lane that sheds more than FAIR_SHED keeps its two classes' admitted
+#: shares within FAIR_GAP.
+SERVING_TRACE = "bursty_mix"
+FAIR_SHED, FAIR_GAP = 0.1, 0.05
+#: phase_serving_parity: lanes of the subset, the diurnal check's offered
+#: rate tolerance, and tests/test_serving.py:310-331's outage check.
+SERVING_PARITY_LANES = 64
+DIURNAL_RATE_TOL = 0.02
+OUTAGE = dict(scenario="outage_grid", trace="bursty", frac=0.95,
+              seeds=(0, 1), T=4096, chunk=256, after_t=3072, qps_frac=0.9)
+#: phase_stream: the small atlas run with the stream on and off.
+STREAM_ATLAS = dict(families=("paper_grid", "ring"), topo_seeds=range(4))
 
 #: Published peaks of the H100 SXM (NVIDIA's data sheet, at 700 W): memory
 #: bytes/s, float32 operations/s outside the tensor cores, and dense
@@ -892,24 +933,22 @@ def main_runner():
         chunk=CHUNK_MAIN, verdict=engine.resolve_verdict(None, True))
 
 
-def phase_profile(dev):
-    """One replay of the main path's captured graph, traced: its
-    bp_slot_step kernels must be the slots the graph holds (what
-    `phase_main`'s launch count multiplies by); CUDA activities and device
-    time per slot, and the device's idle share of a chunk's time: the
-    time between CUDA events around the chunk / block replays one chunk
-    queues back to back, as `GroupLaunch.step` does."""
+def profile_graph(launch, chunk: int, what: str):
+    """One replay of ``launch``'s captured graph, traced: its bp_slot_step
+    kernels must be the slots the graph holds (what the launch counts
+    multiply by); CUDA activities and device time per slot, and the
+    device's idle share of a chunk's time: the time between CUDA events
+    around the chunk / block replays one chunk queues back to back, as
+    `GroupLaunch.step` does.  Returns (activities per slot, device us per
+    slot, idle share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.fleet import engine
-    _, inp = main_batch(dev)
-    launch = engine.launch_for(main_runner(), inp)
-    check(launch.graph is not None, "profile: the main path's launcher "
-          "holds no captured graph")
+    check(launch.graph is not None, f"profile: the {what} launcher holds "
+          "no captured graph")
     graph, block = launch.graph, launch.block
-    per_chunk = CHUNK_MAIN // block
+    per_chunk = chunk // block
     walls = []
-    for _ in range(3):                   # chunks on the main run's carry
+    for _ in range(3):                   # chunks on the run's carry
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         for _ in range(per_chunk):
@@ -925,8 +964,9 @@ def phase_profile(dev):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     fused = [e for e in dev_events if "bp_slot_step_kernel" in e.name]
     check(len(fused) == block == launch.captured,
-          f"profile: one replay ran {len(fused)} bp_slot_step kernels; the "
-          f"graph holds {block} slots and captured {launch.captured}")
+          f"profile: one replay of the {what} graph ran {len(fused)} "
+          f"bp_slot_step kernels; the graph holds {block} slots and "
+          f"captured {launch.captured}")
     per_slot = len(dev_events) / block
     dev_us = sum(e.device_time for e in dev_events) / block
     fused_us = sum(e.device_time for e in fused) / block
@@ -935,17 +975,26 @@ def phase_profile(dev):
     for e in dev_events:
         kinds[e.name] = kinds.get(e.name, 0) + 1
     top_kinds = sorted(kinds.items(), key=lambda kv: -kv[1])[:8]
-    log(f"profile: one replay of the main path's {block}-slot graph at "
-        f"B={inp.pp.batch}: {len(fused)} bp_slot_step kernels (= slots in "
+    idle = 1.0 - dev_us / wall_us
+    log(f"profile: one replay of the {what} {block}-slot graph at "
+        f"B={launch.batch}: {len(fused)} bp_slot_step kernels (= slots in "
         f"the graph), {per_slot:.2f} CUDA device activities per slot, "
         f"{dev_us:.2f} us of device time per slot against "
         f"{wall_us:.2f} us per slot between CUDA events around a chunk of "
         f"{per_chunk} replays (median of {len(walls)}): the device is idle "
-        f"{1.0 - dev_us / wall_us:.4f} of a chunk; the fused slot step "
+        f"{idle:.4f} of a chunk; the fused slot step "
         f"{fused_us:.2f} us per slot, {fused_us / dev_us:.4f} of the device "
         f"time; most frequent: "
         + "; ".join(f"{n[:60]} x{c / block:.2f}" for n, c in top_kinds))
-    return per_slot
+    return per_slot, dev_us, idle
+
+
+def phase_profile(dev):
+    """`profile_graph` on the main path's launcher, after `phase_main`."""
+    from repro_torch.fleet import engine
+    _, inp = main_batch(dev)
+    return profile_graph(engine.launch_for(main_runner(), inp), CHUNK_MAIN,
+                         "main path's")[0]
 
 
 def phase_graph_parity(dev, res, wall_graphed: float):
@@ -1230,6 +1279,13 @@ def reference_numbers(name: str) -> dict:
     return json.loads(path.read_text()) if path.is_file() else {}
 
 
+def frontier_kw(dev) -> dict:
+    """`find_lambda_max`'s arguments at FRONTIER_SMOKE."""
+    return dict(eps_b=FRONTIER["eps_b"], seeds=FRONTIER["seeds"],
+                T=FRONTIER["T"], chunk=FRONTIER["chunk"],
+                rel_tol=FRONTIER["rel_tol"], device=dev)
+
+
 def phase_frontier(dev):
     """benchmarks/bench_fleet.py's FRONTIER_SMOKE through the port's
     `find_lambda_max`: paper_grid under pi3 and pi3_reg.  Gates (that
@@ -1244,15 +1300,14 @@ def phase_frontier(dev):
     reset_fused_counts(K)
     saved = full = slots = 0
     out = []
+    results = {}
     for scenario, policy in FRONTIER["targets"]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = find_lambda_max(scenario, policy, eps_b=FRONTIER["eps_b"],
-                            seeds=FRONTIER["seeds"], T=FRONTIER["T"],
-                            chunk=FRONTIER["chunk"],
-                            rel_tol=FRONTIER["rel_tol"], device=dev)
+        r = find_lambda_max(scenario, policy, **frontier_kw(dev))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        results[(scenario, policy)] = (r, wall)
         lo, hi = FRONTIER_RATIO_BAND
         check(lo <= r.ratio <= hi, f"frontier {scenario}/{policy}: "
               f"lam_max / bound {r.ratio} outside [{lo}, {hi}]")
@@ -1282,7 +1337,7 @@ def phase_frontier(dev):
     log("frontier: " + "; ".join(out) + f"; slots saved {saved} of {full} "
         f"({saved / full:.4f}); fused launches {fused} = batched slots; "
         f"{card_line()}")
-    return fused["launched"]
+    return fused["launched"], results
 
 
 def phase_atlas(dev):
@@ -1371,6 +1426,394 @@ def phase_atlas(dev):
             {f: [row["n_undecided_hi"], row["n_requeued"]]
              for f, row in table["families"].items()}))
     return fused["launched"], wall
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: serving with admission control, and the telemetry streams
+# ---------------------------------------------------------------------------
+
+def serving_jobs(trace: str = SERVING_TRACE):
+    """The main path's 1,512 (family, topo_seed, rate, seed) jobs as
+    serving jobs facing ``trace``, and their (bound, frac)."""
+    from repro_torch.serving import ServingJob
+    jobs, bounds = main_jobs()
+    return [ServingJob(scenario=j.scenario, policy=j.policy, trace=trace,
+                       lam=j.lam, seed=j.seed, topo_seed=j.topo_seed,
+                       eps_b=j.eps_b) for j in jobs], bounds
+
+
+def differing(a, b) -> list:
+    """Indices of the jobs whose metrics differ in any leaf, any bit."""
+    return [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+
+
+def serving_finite(res) -> bool:
+    import numpy as np
+    return all(np.isfinite(np.asarray(res.column(k), np.float64)).all()
+               for k in res.metrics[0])
+
+
+def phase_serving_smoke(dev):
+    """benchmarks/bench_serving.py's SERVING_SMOKE through the port's
+    `serving_report`, nothing cut, stream on, held to that file's gates:
+    at 0.95x the bound delivered / bound >= 0.9, shed <= 0.02, p99 <= 512
+    slots; at 1.3x shed >= 0.10 and the admitted rate <= 1.05 x the bound.
+    One stream record per chunk, valid under the port's schema; the fused
+    slot step launched once per batched slot, one capture.  The
+    reference's committed rows (BENCH_baseline.json) print beside."""
+    import torch
+    from repro_torch.kernels.bp_slot import kernel as K
+    from repro_torch.obs import schema
+    from repro_torch.serving import serving_report
+    ref = reference_numbers("BENCH_baseline.json").get("serving", {})
+    reset_fused_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = serving_report(**SERVING_SMOKE, stream=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res, bound = rep["result"], rep["bound_exact"]
+    nom, over = rep["rows"]["0.95"], rep["rows"][f"{SERVING_OVERLOAD_FRAC:g}"]
+    check(nom["delivered_over_bound"] >= SERVING_MIN_RATIO,
+          f"serving smoke: 0.95-load delivered / bound "
+          f"{nom['delivered_over_bound']:.4f} < {SERVING_MIN_RATIO}")
+    check(nom["shed_frac_max"] <= SERVING_MAX_SHED,
+          f"serving smoke: 0.95-load shed {nom['shed_frac_max']:.4f}")
+    check(nom["p99_sojourn_max"] <= SERVING_P99_MAX,
+          f"serving smoke: 0.95-load p99 {nom['p99_sojourn_max']} slots")
+    check(over["shed_frac"] >= SERVING_OVERLOAD_MIN_SHED,
+          f"serving smoke: {SERVING_OVERLOAD_FRAC}x shed "
+          f"{over['shed_frac']:.4f} < {SERVING_OVERLOAD_MIN_SHED}")
+    check(over["admitted_rate"] <= bound * SERVING_OVERLOAD_RATE_SLACK,
+          f"serving smoke: admitted rate {over['admitted_rate']:.4f} > "
+          f"{SERVING_OVERLOAD_RATE_SLACK} x bound {bound}")
+    recs = res.stream_records
+    errs = schema.validate_stream(recs)
+    check(len(recs) == res.T // SERVING_SMOKE["chunk"] and not errs,
+          f"serving smoke: {len(recs)} stream records, errors {errs[:3]}")
+    fused = fused_launches(K)
+    check(fused["launched"] == res.slot_steps > 0 and fused["replayed"] > 0
+          and res.n_step_compiles == 1,
+          f"serving smoke: fused launches {fused} for {res.slot_steps} "
+          f"batched slots, {res.n_step_compiles} captures")
+    keys = ("delivered_over_bound", "shed_frac", "p99_sojourn",
+            "p99_sojourn_max", "admitted_rate", "gate_open_frac",
+            "gate_flips")
+    rows = {f: {k: (round(r[k], 4), ref.get("rows", {}).get(f, {}).get(k))
+                for k in keys} for f, r in rep["rows"].items()}
+    log(f"serving smoke (SERVING_SMOKE: paper_grid, pi3_reg, bursty, "
+        f"bound {bound}, T={res.T}, chunk {SERVING_SMOKE['chunk']}, "
+        f"{res.n_sims} lanes): gates pass; {len(recs)} stream records; "
+        f"{wall:.3f} s (capture included); fused launches {fused}; rows, "
+        f"(the port's, the reference's committed) " + json.dumps(rows))
+    return fused["launched"]
+
+
+def phase_serving(dev):
+    """The serving path at full width: the main path's 1,512 jobs (8
+    families x topo_seeds 0-20 x fracs (0.5, 0.95, 1.3) x seeds 0-2, padded
+    to the hull (16, 51, 4)) facing `bursty_mix`, pi3_reg, T=4096,
+    chunk=512, streamed to a JSONL file through ``stream_path``.  Gates:
+    one group and one capture; fused slot-step launches (eager + replayed)
+    = slots advanced, B1/B2 never alone; every metric finite; no lane's
+    delivered QPS above 1.02 x its bound; at 1.3x every lane that sheds
+    more than 0.1 keeps its classes' admitted shares within 0.05; gate
+    flips <= windows / 2; the stream file valid with one record per chunk.
+    Then the run twice more, stream off and on (graph captured before):
+    metrics bit-identical, ms per batched slot of each; per-family medians
+    of delivered / bound, shed and p99 at each rate; one traced replay."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.fleet import PadDims, engine
+    from repro_torch.fleet.scenarios import event_code, get_scenario
+    from repro_torch.kernels.bp_slot import kernel as K
+    from repro_torch.obs import schema
+    from repro_torch.serving import get_trace, make_serving_runner, \
+        run_serving
+    jobs, bounds = serving_jobs()
+    dims = PadDims(N_MAIN, E_MAIN, NC_MAIN)
+    kw = dict(T=T_MAIN, chunk=CHUNK_MAIN, device=dev, dims=dims)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "SERVING_stream.jsonl")
+        K.slot_route_decide.launches = 0
+        K.comp_balance_decide.launches = 0
+        reset_fused_counts(K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_serving(jobs, stream_path=path, **kw)
+        torch.cuda.synchronize()
+        walls = {"stream on, capture included": time.perf_counter() - t0}
+        fused = fused_launches(K)
+        b12 = (K.slot_route_decide.launches, K.comp_balance_decide.launches)
+        on_file = schema.read_stream_jsonl(path)
+    check(res.n_programs == 1 and res.n_step_compiles == 1,
+          f"serving: {res.n_programs} groups, {res.n_step_compiles} "
+          f"captures")
+    check(fused["launched"] == res.slot_steps > 0 and fused["replayed"] > 0,
+          f"serving: fused launches {fused} != slots {res.slot_steps}")
+    check(b12 == (0, 0), f"serving: B1/B2 launched on their own: {b12}")
+    check(serving_finite(res), "serving: non-finite metrics")
+    bound = np.array([b for b, _ in bounds])
+    frac = np.array([f for _, f in bounds])
+    dq = res.column("delivered_qps")
+    over = np.flatnonzero(dq > LP_TOL * bound)
+    check(not over.size, f"serving: {over.size} lanes above {LP_TOL} x "
+          f"bound, first {[jobs[i] for i in over[:3]]}")
+    shed = res.column("shed_frac")
+    cf = np.array([m["class_admit_frac"] for m in res.metrics])
+    shedding = np.flatnonzero((frac == SERVING_OVERLOAD_FRAC)
+                              & (shed > FAIR_SHED))
+    gaps = np.abs(cf[shedding, 0] - cf[shedding, 1])
+    check(shedding.size > 0 and (gaps < FAIR_GAP).all(),
+          f"serving: {shedding.size} shedding lanes at "
+          f"{SERVING_OVERLOAD_FRAC}x, class gap max "
+          f"{gaps.max() if gaps.size else None}")
+    n_windows = res.T // CHUNK_MAIN
+    flips = res.column("gate_flips")
+    check(flips.max() <= n_windows // 2,
+          f"serving: {flips.max()} gate flips > {n_windows // 2}")
+    errs = schema.validate_stream(on_file)
+    check(on_file == res.stream_records and len(on_file) == n_windows
+          and not errs, f"serving: stream file of {len(on_file)} records "
+          f"(in memory {len(res.stream_records)}), errors {errs[:3]}")
+    for name, stream in (("stream off", False), ("stream on", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = run_serving(jobs, stream=stream, **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        diff = differing(again.metrics, res.metrics)
+        check(not diff and again.n_step_compiles == 1,
+              f"serving, {name}: {len(diff)} lanes differ from the first "
+              f"run, {again.n_step_compiles} captures")
+    slots = res.slot_steps
+    cost = walls["stream on"] / walls["stream off"] - 1.0
+    by_family = {}
+    p99 = res.column("p99_sojourn")
+    for fam in FAMILIES:
+        for f in RATE_FRACS:
+            idx = [i for i, j in enumerate(jobs)
+                   if j.scenario == fam and frac[i] == f]
+            by_family[f"{fam}@{f}"] = [
+                round(float(np.median(dq[idx] / bound[idx])), 4),
+                round(float(np.median(shed[idx])), 4),
+                float(np.median(p99[idx]))]
+    log(f"serving: {len(jobs)} lanes ({SERVING_TRACE}, pi3_reg), T={res.T},"
+        f" chunk {CHUNK_MAIN}, dims {dims}, {slots} slots, fused launches "
+        f"{fused}, 1 capture; {shedding.size} lanes shed > {FAIR_SHED} at "
+        f"{SERVING_OVERLOAD_FRAC}x, class-share gap max "
+        f"{float(gaps.max()):.4f}; gate flips max {flips.max():.0f}; "
+        + "; ".join(f"{k} {w:.3f} s, {w / slots * 1e3:.4f} ms per batched "
+                    f"slot" for k, w in walls.items())
+        + f"; the stream costs {cost:+.4f} of the stream-off wall time "
+        f"({card_line()})")
+    log("serving: per family@rate, median [delivered / bound, shed, p99 "
+        "slots] " + json.dumps(by_family))
+    runner = make_serving_runner(jobs[0].policy_config(),
+                                 get_trace(SERVING_TRACE), T_MAIN,
+                                 chunk=CHUNK_MAIN)
+    codes = tuple(sorted({event_code(get_scenario(j.scenario).events)
+                          for j in jobs}))
+    launch = engine.make_group_launch(
+        runner, len(jobs), dims,
+        torch.device("cuda", torch.cuda.current_device()), codes)
+    profile_graph(launch, CHUNK_MAIN, f"serving path's ({SERVING_TRACE})")
+    return fused["launched"], walls
+
+
+def phase_serving_parity(dev):
+    """A 64-lane subset of `phase_serving`'s jobs four ways: graphed
+    (`run_serving`) and through the eager `chunk_step` loop, each with the
+    stream off and on: every metric bit-identical, and the eager stream's
+    records equal to the graphed stream's.  A `diurnal_mix` run of the
+    same lanes (the in-slot Poisson CDF): finite, the lanes' median
+    offered rate ((admitted + shed) / T) within 2% of lam.  The outage
+    check of tests/test_serving.py:310-331 on the card: outage_grid,
+    bursty, 0.95x, seeds (0, 1), T=4096, chunk=256: shed > 0.05, the gate
+    reopened, >= 2 flips, every record after t=3072 at qps_med >= 0.9 x
+    the bound."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.fleet import PadDims, policy_bound_exact
+    from repro_torch.fleet.batching import from_leaves, pad_leaves
+    from repro_torch.fleet.scenarios import event_code, get_scenario
+    from repro_torch.obs.emitter import ChunkEmitter, StreamSink
+    from repro_torch.serving import (ServingJob, get_trace,
+                                     make_serving_runner, run_serving)
+    from repro_torch.serving.engine import metric_rows
+    all_jobs, _ = serving_jobs()
+    step = len(all_jobs) // SERVING_PARITY_LANES
+    jobs = all_jobs[::step][:SERVING_PARITY_LANES]
+    dims = PadDims(N_MAIN, E_MAIN, NC_MAIN)
+    kw = dict(T=T_MAIN, chunk=CHUNK_MAIN, device=dev, dims=dims)
+    runs, walls = {}, {}
+    for stream in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run_serving(jobs, stream=stream, **kw)
+        torch.cuda.synchronize()
+        walls[f"graphed, stream {'on' if stream else 'off'}"] = \
+            time.perf_counter() - t0
+        runs[("graphed", stream)] = (r.metrics, r.stream_records)
+    runner = make_serving_runner(jobs[0].policy_config(),
+                                 get_trace(SERVING_TRACE), T_MAIN,
+                                 chunk=CHUNK_MAIN)
+    pp = from_leaves([pad_leaves(get_scenario(j.scenario).build(
+        j.topo_seed), dims) for j in jobs], dims.n_nodes, dims.n_comp, dev)
+    inp = runner.make_inputs(
+        pp, [j.lam for j in jobs], [j.eps_b for j in jobs],
+        [event_code(get_scenario(j.scenario).events) for j in jobs],
+        [j.seed for j in jobs])
+    for stream in (False, True):
+        carry = runner.init_carry(inp.pp)
+        sink = StreamSink() if stream else None
+        em = ChunkEmitter("serving", 0, len(jobs), runner, sink) \
+            if stream else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runner.n_chunks):
+            runner.chunk_step(inp, carry)
+            if em is not None:
+                em.emit(runner.probe(carry))
+        if em is not None:
+            em.close()
+        torch.cuda.synchronize()
+        walls[f"eager, stream {'on' if stream else 'off'}"] = \
+            time.perf_counter() - t0
+        runs[("eager", stream)] = (
+            metric_rows(runner.finalize(inp, carry)),
+            sink.records if sink is not None else [])
+    base = runs[("graphed", False)][0]
+    for key, (m, _) in runs.items():
+        diff = differing(m, base)
+        check(not diff, f"serving parity: {key} differs from graphed with "
+              f"the stream off in {len(diff)} lanes, first "
+              f"{jobs[diff[0]] if diff else None}")
+    check(runs[("eager", True)][1] == runs[("graphed", True)][1]
+          and len(runs[("graphed", True)][1]) == runner.n_chunks,
+          "serving parity: the eager stream's records differ from the "
+          "graphed stream's")
+    slots = runner.T
+    log(f"serving parity: {len(jobs)} lanes x {slots} slots, graphed and "
+        f"eager, stream off and on: bit-identical metrics, equal records; "
+        + "; ".join(f"{k} {w:.3f} s ({w / slots * 1e3:.4f} ms per batched "
+                    f"slot)" for k, w in walls.items()))
+
+    djobs = [dc.replace(j, trace="diurnal_mix") for j in jobs]
+    d = run_serving(djobs, **kw)
+    check(serving_finite(d), "diurnal_mix: non-finite metrics")
+    offered = (d.column("admitted_total") + d.column("shed_total")) / d.T
+    ratio = float(np.median(offered / np.array([j.lam for j in djobs])))
+    check(abs(ratio - 1.0) <= DIURNAL_RATE_TOL,
+          f"diurnal_mix: median offered / lam {ratio:.4f}")
+    log(f"serving parity: diurnal_mix, {len(djobs)} lanes: finite; median "
+        f"offered / lam {ratio:.4f} (within {DIURNAL_RATE_TOL}); "
+        f"{d.n_step_compiles} capture")
+
+    o = OUTAGE
+    bound = policy_bound_exact(o["scenario"], "pi3_reg", EPS_B, 0)
+    ojobs = [ServingJob(scenario=o["scenario"], trace=o["trace"],
+                        lam=o["frac"] * bound, seed=s) for s in o["seeds"]]
+    r = run_serving(ojobs, T=o["T"], chunk=o["chunk"], device=dev,
+                    stream=True)
+    tail = [x for x in r.stream_records if x["t"] > o["after_t"]]
+    check(np.all(r.column("shed_frac") > 0.05)
+          and np.all(r.column("gate") == 1.0)
+          and np.all(r.column("gate_flips") >= 2.0),
+          f"outage: shed {r.column('shed_frac')}, gate "
+          f"{r.column('gate')}, flips {r.column('gate_flips')}")
+    check(tail and all(x["qps_med"] >= o["qps_frac"] * bound for x in tail),
+          f"outage: records after t={o['after_t']}: "
+          f"{[x['qps_med'] for x in tail]} against bound {bound}")
+    log(f"serving parity: outage ({o['scenario']}, bound {bound}): shed "
+        f"{r.column('shed_frac').round(4).tolist()}, flips "
+        f"{r.column('gate_flips').tolist()}, gate reopened; qps_med after "
+        f"t={o['after_t']}: {[x['qps_med'] for x in tail]}")
+
+
+def phase_stream(dev, main_res, jobs, frontier_results):
+    """The telemetry plane on the fleet paths.  `run_fleet` on the main
+    path's 1,512 jobs with the stream on: bit-identical to `phase_main`'s
+    run, no extra capture, one fleet record per chunk launched; then with
+    the stream off again, for the wall time in this call.  The frontier
+    (FRONTIER_SMOKE's first target) with ``stream_log``: the same result
+    as `phase_frontier`'s, valid records.  A small atlas (two families x 4
+    topo_seeds, ATLAS's other settings), stream on against off: the same
+    rows, launches and captures, one valid record per launch."""
+    import torch
+    from repro_torch.fleet import (PadDims, find_lambda_max,
+                                   registry_cells, run_fleet,
+                                   sweep_lambda_max)
+    from repro_torch.obs import schema
+    dims = PadDims(N_MAIN, E_MAIN, NC_MAIN)
+    walls = {}
+    runs = {}
+    for stream in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[stream] = run_fleet(jobs, T=T_MAIN, chunk=CHUNK_MAIN,
+                                 device=dev, dims=dims, early_stop=True,
+                                 stream=stream)
+        torch.cuda.synchronize()
+        walls[f"fleet, stream {'on' if stream else 'off'}"] = \
+            time.perf_counter() - t0
+    on = runs[True]
+    diff = differing(on.metrics, main_res.metrics)
+    errs = schema.validate_stream(on.stream_records)
+    check(not diff and not differing(runs[False].metrics, main_res.metrics),
+          f"stream: {len(diff)} fleet sims differ from phase_main's run")
+    check(on.n_step_compiles == 1 and
+          len(on.stream_records) == on.slot_steps // CHUNK_MAIN and not errs,
+          f"stream: {on.n_step_compiles} captures, "
+          f"{len(on.stream_records)} records for "
+          f"{on.slot_steps // CHUNK_MAIN} chunks, errors {errs[:3]}")
+
+    target = FRONTIER["targets"][0]
+    seen = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_on = find_lambda_max(*target, **frontier_kw(dev), stream_log=seen.append)
+    torch.cuda.synchronize()
+    walls["frontier, stream_log on"] = time.perf_counter() - t0
+    f_off, walls["frontier, stream off (phase_frontier)"] = \
+        frontier_results[target]
+    bad = [r for r in seen if schema.validate_record(r)]
+    check(f_on == f_off and seen and not bad and
+          sum(r["chunk"] == 0 for r in seen) == f_on.n_calls,
+          f"stream: the frontier with stream_log differs ({len(seen)} "
+          f"records, {len(bad)} invalid)")
+
+    a = dict(ATLAS)
+    cells = registry_cells(STREAM_ATLAS["families"],
+                           STREAM_ATLAS["topo_seeds"],
+                           policy=a.pop("policy"), eps_b=a.pop("eps_b"))
+    for k in ("families", "topo_seeds"):
+        a.pop(k)
+    atlas = {}
+    for stream in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        atlas[stream] = sweep_lambda_max(cells, device=dev, stream=stream,
+                                         **a)
+        torch.cuda.synchronize()
+        walls[f"atlas, stream {'on' if stream else 'off'}"] = \
+            time.perf_counter() - t0
+    x, y = atlas[False], atlas[True]
+    errs = schema.validate_stream(y.stream_records)
+    check(x.rows == y.rows and (x.n_launches, x.n_step_compiles) ==
+          (y.n_launches, y.n_step_compiles) and
+          len(y.stream_records) == y.n_launches and not errs,
+          f"stream: atlas on/off differ or records bad ({errs[:3]})")
+    log(f"stream: run_fleet ({len(jobs)} sims) bit-identical with the "
+        f"stream on, {len(on.stream_records)} records, 1 capture; frontier "
+        f"{target} with stream_log: same result, {len(seen)} records; "
+        f"atlas ({len(cells)} cells, {y.n_launches} launches): same rows, "
+        f"{len(y.stream_records)} records; wall "
+        + "; ".join(f"{k} {w:.3f} s" for k, w in walls.items())
+        + f" ({card_line()})")
+    return walls
 
 
 # ---------------------------------------------------------------------------
@@ -1977,10 +2420,11 @@ def phase_flash(dev, peaks):
     at granite's prefill shape, the rows of `flash_windows` against a
     plain computation under the same rule, then device times of the sm90
     kernel, of the CUDA-core kernel in float32, of the plain version (at
-    FLASH_PLAIN_S) and of SDPA (the library column, timed only) beside the
-    bound."""
+    FLASH_PLAIN_S) and of SDPA (the library column, timed only; in bf16,
+    and in float32 beside the CUDA-core kernel) beside the bound."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -2032,6 +2476,13 @@ def phase_flash(dev, peaks):
     q32, k32, v32 = (t.float() for t in (q, k, v))
     simt_ms = device_ms(lambda: K.flash_attention(q32, k32, v32),
                         match="flash_attention_kernel<", n=2, warm=1)
+    # SDPA's float32 kernel (memory-efficient) takes no grouped heads: the
+    # kv heads are repeated before the timed call, and the backend is
+    # pinned so that no call falls back to materialising the scores.
+    k32, v32 = (t.repeat_interleave(H // KH, dim=1) for t in (k32, v32))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib32_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q32, k32, v32, is_causal=True), n=2, warm=1)
     del q32, k32, v32
     q4, k4, v4 = (t[:, :, :FLASH_PLAIN_S] for t in (q, k, v))
     ms4 = device_ms(lambda: K.flash_attention(q4, k4, v4),
@@ -2047,7 +2498,7 @@ def phase_flash(dev, peaks):
         replaces="src/repro/kernels/flash_attention/kernel.py:74",
         max_abs_err=max_abs_err(errs), ms=ms, plain_ms=plain4,
         plain_S=FLASH_PLAIN_S, ms_at_plain_S=ms4, simt_f32_ms=simt_ms,
-        library_ms=lib_ms, bytes=nbytes, ops=nops)
+        library_ms=lib_ms, library_f32_ms=lib32_ms, bytes=nbytes, ops=nops)
     # The operands are bf16: both products at the tensor cores' bf16 rate
     # (QK^T of bf16 operands is exact in float32 accumulation; P.V at that
     # rate takes P in bf16, as SDPA does), the least the card could take.
@@ -2062,7 +2513,9 @@ def phase_flash(dev, peaks):
         f"({nops} flops at the bf16 tensor-core rate, {nbytes} B), the "
         f"design's split-P floor {split_p_floor_ms:.4f} ms; SDPA (library, "
         f"is_causal, enable_gqa) {lib_ms:.4f} ms; the CUDA-core kernel in "
-        f"float32 at the same shape {simt_ms:.4f} ms (simt_f32_ms); "
+        f"float32 at the same shape {simt_ms:.4f} ms (simt_f32_ms), SDPA "
+        f"in float32 there (memory-efficient backend, kv heads repeated "
+        f"before the call) {lib32_ms:.4f} ms (library_f32_ms); "
         f"{len(windows)} row windows ({sum(n for _, n in windows)} rows, "
         f"first rows {[r for r, _ in windows]}) within {rows_err:.3e} of a "
         f"plain computation, at most {rows_use:.3f} of the bf16 rounding "
@@ -2532,12 +2985,18 @@ def main() -> int:
     phase_reference(dev)
     phase_determinism(dev, res, jobs)
     phase_wireless(dev)
-    frontier_launches = phase_frontier(dev)
+    frontier_launches, frontier_results = phase_frontier(dev)
     atlas_launches, _ = phase_atlas(dev)
+    smoke_launches = phase_serving_smoke(dev)
+    serving_launches, _ = phase_serving(dev)
+    phase_serving_parity(dev)
+    phase_stream(dev, res, jobs, frontier_results)
     rows["bp_slot_step"]["path"] = (
         f"run_fleet, graphed (phase_main; launches counted there); "
         f"find_lambda_max, {frontier_launches} more (phase_frontier); "
-        f"sweep_lambda_max, {atlas_launches} more (phase_atlas)")
+        f"sweep_lambda_max, {atlas_launches} more (phase_atlas); "
+        f"run_serving, {smoke_launches} (phase_serving_smoke) and "
+        f"{serving_launches} (phase_serving) more")
     phase_router(dev)
     launches["bp_topk_route"] = phase_serve(dev)
     rows["bp_topk_route"]["path"] = ("Engine decode steps (phase_serve); "
@@ -2556,10 +3015,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # A plain version timed at another shape than the kernel says which;
-    # flash attention also names its kernel and the CUDA-core kernel's
-    # float32 time; the bp_slot and bp_topk rows name the path that
-    # launched them.
-    shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms", "path")
+    # flash attention also names its kernel and the CUDA-core kernel's and
+    # SDPA's float32 times; the bp_slot and bp_topk rows name the path
+    # that launched them.
+    shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms",
+             "library_f32_ms", "path")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}
     for r in table["kernels"]:

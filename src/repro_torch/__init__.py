@@ -13,12 +13,18 @@ module names.  It imports torch, numpy and scipy, never jax and nothing of
     (`csrc/bp_topk_route.cu`);
   * `sim`, `fleet` — the trace simulator and the batched fleet engine;
     every state tensor carries a leading fleet axis [B];
+  * `serving` — trace-driven serving with backpressure admission control
+    on the fleet substrate (`run_serving`, `serving_report`), with the
+    latency accumulators of `core.latency`;
+  * `obs` — the chunk-boundary telemetry stream (`obs.emitter`), its
+    versioned record schema (`obs.schema`) and a live view
+    (``python -m repro_torch.obs.follow``);
   * `configs`, `models` — the ported architectures and the dense/MoE
     decoder-only transformer's decode path;
   * `launch.serve` — the continuous-batching serving `Engine`.
 
 The kernels are hand-written CUDA, built with nvcc at first use; on CPU
 tensors their wrappers run the plain PyTorch versions.  Entry points
-(`run_fleet`, `simulate`, `Engine`, `launch.serve.main`, ...) run on CUDA
+(`run_fleet`, `run_serving`, `simulate`, `Engine`, ...) run on CUDA
 unless the caller passes ``device="cpu"``, and raise without a card.
 """

@@ -41,6 +41,7 @@ import numpy as np
 from repro_torch.core.graph import ComputeProblem
 from repro_torch.core.queues import VERDICT_NAMES, VERDICT_UNDECIDED
 from repro_torch.device import resolve_device
+from repro_torch.obs.emitter import atlas_record, open_sink
 from .batching import PadDims, from_leaves, make_buckets, pad_leaves
 from .engine import (FleetJob, VerdictConfig, _policy_group_key, launch_for,
                      make_inputs, make_sim_rewriter, make_stream_runner,
@@ -117,6 +118,9 @@ class AtlasResult:
     n_requeues: int = 0      # adaptive-horizon re-queues across cells
     slot_steps: int = 0      # batched slot steps run, over all batches
     device: str = ""
+    stream_records: List[dict] = dataclasses.field(default_factory=list)
+                             # one atlas record per launch
+                             # (sweep_lambda_max(stream=True))
 
     @property
     def n_buckets(self) -> int:
@@ -146,7 +150,9 @@ def sweep_lambda_max(cells: Sequence[AtlasJob], *,
                      verdict: VerdictConfig | None = None,
                      device=None, dims: PadDims | None = None,
                      n_buckets: int = 1,
-                     max_requeues: int = 0) -> AtlasResult:
+                     max_requeues: int = 0,
+                     stream: bool = False, stream_log=None,
+                     stream_path: str | None = None) -> AtlasResult:
     """Bisect λ_max for every atlas cell on ``device`` (CUDA unless the
     caller asks for the CPU), one padded batch per (policy group x size
     bucket) advancing all of its cells' current probes at once.
@@ -162,12 +168,32 @@ def sweep_lambda_max(cells: Sequence[AtlasJob], *,
     padded to it.  ``max_requeues > 0`` restarts a cell whose finished
     search is UNDECIDED at its top, or collapsed (``k_lo == 0``), from its
     first bracket with double the chunk budget, up to ``max_requeues``
-    times, its fold_seed ``call_index`` bumped to the attempt number."""
+    times, its fold_seed ``call_index`` bumped to the attempt number.
+
+    ``stream``/``stream_log``/``stream_path`` mirror `run_fleet`: one
+    atlas record per launch (bisection progress per family, from the host
+    scheduler's state, so streaming cannot perturb the bisections), in
+    ``AtlasResult.stream_records``; the stream clock ``t`` counts slots
+    dispatched per lane.  (The reference's ``resilience`` is not ported
+    yet.)"""
     cells = list(cells)
     if not cells:
         raise ValueError("empty atlas")
     dev = resolve_device(device)
-    seeds = tuple(seeds)
+    sink = open_sink(stream, stream_log, stream_path)
+    try:
+        return _sweep(cells, dev, tuple(seeds), T, chunk, window, rel_tol,
+                      bracket, max_calls, early_stop, verdict, dims,
+                      n_buckets, max_requeues, sink)
+    finally:
+        if sink is not None:
+            sink.close()
+
+
+def _sweep(cells, dev, seeds, T, chunk, window, rel_tol, bracket, max_calls,
+           early_stop, verdict, dims, n_buckets, max_requeues,
+           sink) -> AtlasResult:
+    """`sweep_lambda_max`'s batches, each to its end."""
     vcfg = resolve_verdict(verdict, early_stop)
     S = len(seeds)
 
@@ -233,7 +259,7 @@ def sweep_lambda_max(cells: Sequence[AtlasJob], *,
     bucket_launches: Dict[int, int] = {b: 0 for b in range(len(bucket_dims))}
     eff_T = eff_chunk = 0
 
-    for bkt, cidx in units:
+    for g, (bkt, cidx) in enumerate(units):
         c0 = cells[cidx[0]]
         cfg = FleetJob(scenario=c0.scenario, policy=c0.policy,
                        eps_b=c0.eps_b,
@@ -292,9 +318,11 @@ def sweep_lambda_max(cells: Sequence[AtlasJob], *,
             rewrite(np.zeros(B, bool), park0)
             n_rewrites += 1
 
+        g_launches = 0
         while active:
             launch.step()
             n_launches += 1
+            g_launches += 1
             slot_steps += runner.chunk
             bucket_launches[bkt] += 1
             for ci in active:
@@ -366,6 +394,11 @@ def sweep_lambda_max(cells: Sequence[AtlasJob], *,
                 # No rewrite once the batch drains: nothing runs again.
                 rewrite(reset, park, lam_host, seed_host)
                 n_rewrites += 1
+            if sink is not None:
+                sink.write(atlas_record(
+                    g, bkt, n_requeues, g_launches, runner.chunk, B, cells,
+                    cidx, active, machines, steps, bounds, probes_of,
+                    verdicts))
         n_step_compiles += launch.n_compiles
 
     done_rows = [r for r in rows if r is not None]
@@ -386,7 +419,8 @@ def sweep_lambda_max(cells: Sequence[AtlasJob], *,
         bucket_dims=list(bucket_dims),
         bucket_cells=n_bucket_cells,
         bucket_launches=dict(bucket_launches),
-        n_requeues=n_requeues, slot_steps=slot_steps, device=str(dev))
+        n_requeues=n_requeues, slot_steps=slot_steps, device=str(dev),
+        stream_records=sink.records if sink is not None else [])
 
 
 def sweep_policy_surface(families: Sequence[str],

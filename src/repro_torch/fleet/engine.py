@@ -29,7 +29,10 @@ a chunk replays one captured CUDA graph of `GRAPH_SLOTS` slots, the chunk
 step's few hundred launches per slot made by the host once, at capture;
 on the CPU it runs the eager `StreamRunner.chunk_step`.  Between chunks
 `make_sim_rewriter` restarts or parks single sims in place (the capacity
-atlas moves each lane to its next probe that way).
+atlas moves each lane to its next probe that way).  The same launcher
+drives the serving runner (`repro_torch.serving.scheduler`).  With a
+stream on, the carry's probe goes out between chunks through the
+telemetry plane (`repro_torch.obs.emitter`), never inside the graph.
 
 Randomness comes from the counter-based stream of
 `repro_torch.sim.workload`, keyed by (job seed, the sim's own slot, draw
@@ -42,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +59,7 @@ from repro_torch.core.queues import (DriftStats, NetState, VERDICT_NAMES,
 from repro_torch.device import resolve_device, tree_leaves
 from repro_torch.kernels.bp_slot.kernel import slot_step_fused
 from repro_torch.kernels.bp_slot.ref import kahan_add
+from repro_torch.obs.emitter import ChunkEmitter, open_sink
 from repro_torch.sim import workload
 from .batching import PadDims, PaddedProblem, from_leaves, pad_leaves
 from .scenarios import (ARRIVAL_MODEL_ORDER, ARRIVAL_MODELS,
@@ -156,6 +160,13 @@ class RunInputs:
     arrival_codes: Tuple[int, ...]  # codes present in the batch
     event_codes: Tuple[int, ...]
 
+    @property
+    def codes(self) -> tuple:
+        """The model codes present: with the batch shape, they key the
+        batch's `GroupLaunch` (each present model is a branch of its
+        slot)."""
+        return (self.arrival_codes, self.event_codes)
+
 
 def make_inputs(pp: PaddedProblem, lam, eps_b, akind, ekind,
                 seed) -> RunInputs:
@@ -187,6 +198,61 @@ def _select(codes, kind, values):
         pick = (kind == code).view(-1, *([1] * (v.dim() - 1)))
         out = torch.where(pick, v, out)
     return out
+
+
+def slot_events(inp, t, mod):
+    """One slot of every sim's capacity event model: (edge_scale [B, E],
+    comp_scale [B, NC], mod').  ``inp`` is any run's inputs with ``pp``,
+    ``seed``, ``ekind`` and ``event_codes``."""
+    pp = inp.pp
+    names = [EVENT_MODEL_ORDER[c] for c in inp.event_codes]
+    u_link = u_comp = None
+    if set(names) & set(LINK_NOISE_EVENTS):
+        u_link = workload.uniform(inp.seed, t, workload.SITE_EVENT_LINK,
+                                  pp.n_edges)
+    if set(names) & set(COMP_NOISE_EVENTS):
+        u_comp = workload.uniform(inp.seed, t, workload.SITE_EVENT_COMP,
+                                  pp.n_comp)
+    outs = [EVENT_MODELS[n](pp, t, u_link, u_comp, mod) for n in names]
+    codes, kind = inp.event_codes, inp.ekind
+    es = _select(codes, kind, [o[0] for o in outs])
+    cs = _select(codes, kind, [o[1] for o in outs])
+    mod = mod.replace(link=_select(codes, kind, [o[2].link for o in outs]),
+                      comp=_select(codes, kind, [o[2].comp for o in outs]))
+    return es, cs, mod
+
+
+def regulator_draws(inp, t) -> torch.Tensor:
+    """The regulator's Bernoulli(eps_b) draws of one slot, [B, NC]."""
+    u = workload.uniform(inp.seed, t, workload.SITE_REGULATOR, inp.pp.n_comp)
+    return (u < inp.eps_b[:, None]).to(torch.float32)
+
+
+def slot_accounting(runner, s: StreamStats, d: DriftStats, t, m: Dict,
+                    lam: torch.Tensor):
+    """One slot of the online metric accumulators and the streaming
+    verdict, from the slot step's metrics ``m``: (stats', drift').
+    ``runner`` gives the horizon ``T``, the rate window's ``mark`` and the
+    verdict's parameters."""
+    tq = m["total_queue"]
+    q3_lo, q4_lo = runner.T // 2, (3 * runner.T) // 4
+    sq, cq = kahan_add(s.sum_queue, s.c_queue, tq)
+    s3, c3 = kahan_add(s.sum_queue_q3, s.c_q3,
+                       tq * ((t >= q3_lo) & (t < q4_lo)))
+    s4, c4 = kahan_add(s.sum_queue_q4, s.c_q4, tq * (t >= q4_lo))
+    stats = StreamStats(
+        sum_queue=sq, c_queue=cq, sum_queue_q3=s3, c_q3=c3,
+        sum_queue_q4=s4, c_q4=c4,
+        max_queue=torch.maximum(s.max_queue, tq),
+        useful_at_mark=torch.where(t == runner.mark - 1,
+                                   m["delivered_useful"], s.useful_at_mark))
+    v = runner.verdict
+    drift = drift_verdict_update(
+        d, t, tq, m["delivered_useful"], lam,
+        window=runner.verdict_window, burn_in=runner.verdict_burn_in,
+        k_stable=v.k_stable, k_unstable=v.k_unstable,
+        drift_tol=v.drift_tol, gap_tol=v.gap_tol)
+    return stats, drift
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,24 +299,6 @@ class StreamRunner:
                         [o[1].burst for o in outs])
         return arr, mod.replace(burst=burst)
 
-    def _events(self, inp: RunInputs, t, mod):
-        pp = inp.pp
-        names = [EVENT_MODEL_ORDER[c] for c in inp.event_codes]
-        u_link = u_comp = None
-        if set(names) & set(LINK_NOISE_EVENTS):
-            u_link = workload.uniform(inp.seed, t, workload.SITE_EVENT_LINK,
-                                      pp.n_edges)
-        if set(names) & set(COMP_NOISE_EVENTS):
-            u_comp = workload.uniform(inp.seed, t, workload.SITE_EVENT_COMP,
-                                      pp.n_comp)
-        outs = [EVENT_MODELS[n](pp, t, u_link, u_comp, mod) for n in names]
-        codes, kind = inp.event_codes, inp.ekind
-        es = _select(codes, kind, [o[0] for o in outs])
-        cs = _select(codes, kind, [o[1] for o in outs])
-        mod = mod.replace(link=_select(codes, kind, [o[2].link for o in outs]),
-                          comp=_select(codes, kind, [o[2].comp for o in outs]))
-        return es, cs, mod
-
     # -- one slot ---------------------------------------------------------
 
     def slot(self, inp: RunInputs, c: Carry, arrivals=None,
@@ -261,33 +309,12 @@ class StreamRunner:
             arrivals, mod = self._arrivals(inp, t, c.mod)
         else:
             mod = c.mod
-        es, cs, mod = self._events(inp, t, mod)
+        es, cs, mod = slot_events(inp, t, mod)
         if self.cfg.use_regulator and reg_draws is None:
-            u = workload.uniform(inp.seed, t, workload.SITE_REGULATOR,
-                                 inp.pp.n_comp)
-            reg_draws = (u < inp.eps_b[:, None]).to(torch.float32)
+            reg_draws = regulator_draws(inp, t)
         state, m = slot_step(inp.pp.with_capacity_scales(es, cs), self.cfg,
                              c.state, arrivals, reg_draws, inp.eps_b)
-        tq = m["total_queue"]
-        s = c.stats
-        q3_lo, q4_lo = self.T // 2, (3 * self.T) // 4
-        sq, cq = kahan_add(s.sum_queue, s.c_queue, tq)
-        s3, c3 = kahan_add(s.sum_queue_q3, s.c_q3,
-                           tq * ((t >= q3_lo) & (t < q4_lo)))
-        s4, c4 = kahan_add(s.sum_queue_q4, s.c_q4, tq * (t >= q4_lo))
-        stats = StreamStats(
-            sum_queue=sq, c_queue=cq, sum_queue_q3=s3, c_q3=c3,
-            sum_queue_q4=s4, c_q4=c4,
-            max_queue=torch.maximum(s.max_queue, tq),
-            useful_at_mark=torch.where(t == self.mark - 1,
-                                       m["delivered_useful"],
-                                       s.useful_at_mark))
-        v = self.verdict
-        drift = drift_verdict_update(
-            c.drift, t, tq, m["delivered_useful"], inp.lam,
-            window=self.verdict_window, burn_in=self.verdict_burn_in,
-            k_stable=v.k_stable, k_unstable=v.k_unstable,
-            drift_tol=v.drift_tol, gap_tol=v.gap_tol)
+        stats, drift = slot_accounting(self, c.stats, c.drift, t, m, inp.lam)
         return Carry(state, stats, drift, mod, t + 1)
 
     def advance(self, inp: RunInputs, carry: Carry, arrivals=None,
@@ -348,6 +375,34 @@ class StreamRunner:
             "decided_at_slot": decided_at,
             "slots_saved": slots_saved,
         }
+
+    def probe(self, c: Carry) -> Dict[str, torch.Tensor]:
+        """The carry's leaves a chunk-boundary stream record reads (port of
+        the reference's ``probe``): views of the carry, no computation, so
+        tapping them changes nothing the chunk step runs."""
+        return {
+            "t": c.t,
+            "delivered_useful": c.state.delivered_useful,
+            "sum_queue": c.stats.sum_queue,
+            "max_queue": c.stats.max_queue,
+            "last_rate": c.drift.last_rate,
+            "last_drift": c.drift.last_drift,
+            "verdict": c.drift.verdict,
+            "decided_at": c.drift.decided_at,
+        }
+
+    # -- the launcher's hooks (`GroupLaunch`) -----------------------------
+
+    def table_kinds(self, inp: RunInputs) -> np.ndarray:
+        """Each sim's arrival-model code: what its Poisson row depends on
+        besides its rate."""
+        return inp.akind.cpu().numpy()
+
+    def table(self, lam, kinds, device, width: int = 0) -> torch.Tensor:
+        """The Poisson tables of sims at rates ``lam`` with arrival models
+        ``kinds``, at least ``width`` columns wide."""
+        return workload.poisson_table(arrival_rates(lam, kinds),
+                                      device=device, width=width)
 
     def run(self, inp: RunInputs, arrivals: torch.Tensor | None = None,
             reg_draws: torch.Tensor | None = None) -> Dict[str, torch.Tensor]:
@@ -432,14 +487,39 @@ def _write(dst, src) -> None:
             d.copy_(s_)
 
 
-class GroupLaunch:
-    """The chunk step of one policy group at one batch shape, on tensors
-    allocated once: the port's counterpart of the reference's compiled
-    chunk-step programs (`repro.fleet.engine.make_group_launch`).
+def _clone(tree):
+    """A copy of a tree of frozen dataclasses with every tensor cloned."""
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _clone(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
-    ``inp`` (the `RunInputs`) and ``carry`` are static: `start` copies a
-    run's per-sim constants into them and resets the carry, `step`
-    advances every sim by one chunk in place, `rewrite` (see
+
+def _widen(cdf: torch.Tensor, width: int) -> torch.Tensor:
+    """``cdf`` with 1.0 in new trailing columns up to ``width``: rows are
+    1.0 beyond their own width, so no draw changes."""
+    if cdf.shape[-1] >= width:
+        return cdf
+    out = torch.ones((*cdf.shape[:-1], width), dtype=cdf.dtype,
+                     device=cdf.device)
+    out[..., :cdf.shape[-1]] = cdf
+    return out
+
+
+class GroupLaunch:
+    """The chunk step of one group at one batch shape, on tensors allocated
+    once: the port's counterpart of the reference's compiled chunk-step
+    programs (`repro.fleet.engine.make_group_launch`).
+
+    It drives any runner with ``init_carry``, ``advance``, ``chunk_step``
+    and the table hooks ``table_kinds``/``table`` (`StreamRunner`, and the
+    serving runner, `repro_torch.serving.scheduler.ServingRunner`), on the
+    inputs that runner builds: a frozen dataclass with ``pp``, ``lam``,
+    ``seed``, a Poisson table ``cdf`` whose last axis is its columns, and
+    ``codes``, the models present.  ``inp`` and ``carry`` are static:
+    `start` copies a run's per-sim constants into them and resets the
+    carry, `step` advances every sim by one chunk in place, `rewrite` (see
     `make_sim_rewriter`) restarts or parks single sims between chunks.
     Nothing rebinds them but a wider Poisson table (below), which drops
     the graph, so a graph captured over them stays valid.
@@ -450,45 +530,40 @@ class GroupLaunch:
     for every later chunk; a failed capture raises.  The Poisson table is
     sized once, for the largest rate `start` is told the lanes may probe;
     a rate that needs a wider table reallocates it and captures again.
-    ``n_compiles`` counts the captures (on the CPU, where `step` runs
-    `StreamRunner.chunk_step`, it is 1: the launcher made), ``replays``
-    the graph replays, ``captured`` the fused slot-step launches one
-    replay makes."""
+    ``n_compiles`` counts the captures (on the CPU, where `step` runs the
+    runner's eager ``chunk_step``, it is 1: the launcher made),
+    ``replays`` the graph replays, ``captured`` the fused slot-step
+    launches one replay makes."""
 
-    def __init__(self, runner: StreamRunner, batch: int, dims,
-                 device: torch.device, arrival_codes: Tuple[int, ...],
-                 event_codes: Tuple[int, ...]):
+    def __init__(self, runner, batch: int, dims, device: torch.device,
+                 *codes):
         self.runner = runner
         self.batch = batch
         self.dims = dims
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.codes = (arrival_codes, event_codes)
+        self.codes = codes
         self.block = math.gcd(runner.chunk, GRAPH_SLOTS)
-        self.inp: RunInputs | None = None
-        self.carry: Carry | None = None
+        self.inp = None
+        self.carry = None
         self.graph = None
         self.n_compiles = 0 if self.device.type == "cuda" else 1
         self.replays = 0
         self.captured = 0
-        self._akind = np.zeros(batch, np.int32)
+        self._kinds = np.zeros(batch, np.int32)
 
-    def _table(self, lam, akind, width: int = 0) -> torch.Tensor:
-        return workload.poisson_table(arrival_rates(lam, akind),
-                                      device=self.device, width=width)
+    def _table(self, lam, kinds, width: int = 0) -> torch.Tensor:
+        return self.runner.table(lam, kinds, self.device, width)
 
     def _grow(self, width: int) -> None:
         """A wider Poisson table (1.0 in the new columns); the graph
         captured over the old one is dropped."""
-        old = self.inp.cdf
-        cdf = torch.ones((self.batch, width), dtype=old.dtype,
-                         device=self.device)
-        cdf[:, :old.shape[1]] = old
-        self.inp = dataclasses.replace(self.inp, cdf=cdf)
+        self.inp = dataclasses.replace(self.inp,
+                                       cdf=_widen(self.inp.cdf, width))
         self.graph = None
 
-    def start(self, inp: RunInputs, max_rate: float = 0.0) -> None:
+    def start(self, inp, max_rate: float = 0.0) -> None:
         """Load a run's per-sim constants and reset every sim's carry.
         ``max_rate`` is the largest offered rate a later `rewrite` may give
         a lane; the Poisson table is sized for it."""
@@ -496,34 +571,24 @@ class GroupLaunch:
         shape = (pp.batch, pp.n_nodes, pp.n_edges, pp.n_comp)
         want = (self.batch, self.dims.n_nodes, self.dims.n_edges,
                 self.dims.n_comp)
-        if shape != want or (inp.arrival_codes, inp.event_codes) != \
-                self.codes or pp.device != self.device:
+        if shape != want or inp.codes != self.codes or \
+                pp.device != self.device:
             raise ValueError(f"GroupLaunch for {want} {self.codes} on "
-                             f"{self.device} got {shape} "
-                             f"{(inp.arrival_codes, inp.event_codes)} on "
+                             f"{self.device} got {shape} {inp.codes} on "
                              f"{pp.device}")
-        self._akind = inp.akind.cpu().numpy()
+        self._kinds = self.runner.table_kinds(inp)
         lam = inp.lam.cpu().numpy()
-        width = max(inp.cdf.shape[1], self._table(
-            np.maximum(lam, np.float32(max_rate)), self._akind).shape[1])
+        width = max(inp.cdf.shape[-1], self._table(
+            np.maximum(lam, np.float32(max_rate)), self._kinds).shape[-1])
         if self.inp is None:
-            self.inp = dataclasses.replace(
-                inp, pp=dataclasses.replace(pp, **{
-                    f.name: getattr(pp, f.name).clone()
-                    for f in dataclasses.fields(pp)
-                    if isinstance(getattr(pp, f.name), torch.Tensor)}),
-                **{k: getattr(inp, k).clone()
-                   for k in ("lam", "eps_b", "akind", "ekind", "seed")},
-                cdf=self._table(lam, self._akind, width))
+            self.inp = _clone(dataclasses.replace(
+                inp, cdf=_widen(inp.cdf, width)))
             self.carry = self.runner.init_carry(self.inp.pp)
             return
-        if width > self.inp.cdf.shape[1]:
+        if width > self.inp.cdf.shape[-1]:
             self._grow(width)
-        _write(self.inp.pp, pp)
-        for k in ("lam", "eps_b", "akind", "ekind", "seed"):
-            getattr(self.inp, k).copy_(getattr(inp, k))
-        self.inp.cdf.copy_(self._table(lam, self._akind,
-                                       self.inp.cdf.shape[1]))
+        _write(self.inp, dataclasses.replace(
+            inp, cdf=_widen(inp.cdf, self.inp.cdf.shape[-1])))
         _write(self.carry, self.runner.init_carry(self.inp.pp))
 
     def _capture(self) -> None:
@@ -562,10 +627,10 @@ class GroupLaunch:
         if lanes.size:
             lam = np.asarray(lam, np.float32).reshape(-1)[lanes]
             seed = np.asarray(seed, np.int64).reshape(-1)[lanes]
-            rows = self._table(lam, self._akind[lanes],
-                               self.inp.cdf.shape[1])
-            if rows.shape[1] > self.inp.cdf.shape[1]:
-                self._grow(rows.shape[1])
+            rows = self._table(lam, self._kinds[lanes],
+                               self.inp.cdf.shape[-1])
+            if rows.shape[-1] > self.inp.cdf.shape[-1]:
+                self._grow(rows.shape[-1])
             idx = torch.as_tensor(lanes, device=self.device)
             mask = torch.as_tensor(reset, device=self.device)
             fresh = self.runner.init_carry(self.inp.pp)
@@ -584,24 +649,22 @@ class GroupLaunch:
 
 
 @functools.lru_cache(maxsize=16)
-def make_group_launch(runner: StreamRunner, batch: int, dims,
-                      device: torch.device, arrival_codes: Tuple[int, ...],
-                      event_codes: Tuple[int, ...]) -> GroupLaunch:
-    """The `GroupLaunch` of one policy group's runner at one batch shape
-    (``batch`` sims padded to ``dims``, the arrival and event models
-    present), memoized like the reference's: every later run of the same
-    shape, a frontier's next probe say, reuses its tensors and its captured
-    graph."""
-    return GroupLaunch(runner, batch, dims, device, arrival_codes,
-                       event_codes)
+def make_group_launch(runner, batch: int, dims, device: torch.device,
+                      *codes) -> GroupLaunch:
+    """The `GroupLaunch` of one group's runner at one batch shape
+    (``batch`` sims padded to ``dims``, the models ``codes`` present: for
+    the fleet the arrival and the event codes), memoized like the
+    reference's: every later run of the same shape, a frontier's next
+    probe say, reuses its tensors and its captured graph."""
+    return GroupLaunch(runner, batch, dims, device, *codes)
 
 
-def launch_for(runner: StreamRunner, inp: RunInputs) -> GroupLaunch:
+def launch_for(runner, inp) -> GroupLaunch:
     """`make_group_launch` for the shape of ``inp``."""
     pp = inp.pp
     return make_group_launch(runner, pp.batch,
                              PadDims(pp.n_nodes, pp.n_edges, pp.n_comp),
-                             pp.device, inp.arrival_codes, inp.event_codes)
+                             pp.device, *inp.codes)
 
 
 def make_sim_rewriter(launch: GroupLaunch):
@@ -640,6 +703,7 @@ class FleetResult:
     n_step_compiles: int = 0      # chunk programs of the groups' launchers:
                                   # graph captures on CUDA, launchers on the
                                   # CPU (cumulative per launcher)
+    stream_records: List[dict] = dataclasses.field(default_factory=list)
 
     def column(self, name: str) -> np.ndarray:
         return np.array([m[name] for m in self.metrics])
@@ -661,7 +725,10 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
               dims: PadDims | None = None,
               early_stop: bool = False,
               verdict: VerdictConfig | None = None,
-              max_rate: float = 0.0) -> FleetResult:
+              max_rate: float = 0.0,
+              stream: bool = False,
+              stream_log: Callable[[dict], None] | None = None,
+              stream_path: str | None = None) -> FleetResult:
     """Run the whole sweep, one batch per policy group, on ``device``
     (CUDA unless the caller asks for the CPU).
 
@@ -671,8 +738,18 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
     verdict leaf is read back between chunks).  ``max_rate`` sizes the
     Poisson tables for offered rates up to it, so that later calls of the
     same shape with rates up to it replay the same graph (the frontier
-    passes its bracket's top); no metric depends on it."""
+    passes its bracket's top); no metric depends on it.
+
+    ``stream=True`` (implied by ``stream_log``/``stream_path``) turns on
+    the telemetry plane (`repro_torch.obs.emitter`): after every chunk the
+    carry's probe leaves are snapshot and differenced into one fleet
+    record per chunk, off the chunk step (the captured graph is the same
+    and every metric bit-identical).  Records land in
+    ``FleetResult.stream_records``; ``stream_path`` appends them live as
+    JSONL, and ``stream_log`` is called per record on the emitter's worker
+    thread.  (The reference's ``resilience`` is not ported yet.)"""
     dev = resolve_device(device)
+    sink = open_sink(stream, stream_log, stream_path)
     jobs = list(jobs)
     vcfg = resolve_verdict(verdict, early_stop)
     problem_of: Dict[tuple, ComputeProblem] = {}
@@ -690,39 +767,65 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
     metrics: List[Dict[str, float] | None] = [None] * len(jobs)
     eff_T = eff_win = 0
     launch_saved = slot_steps = n_compiles = 0
-    for idxs in groups.values():
-        cfg = jobs[idxs[0]].policy_config()
-        runner = make_stream_runner(cfg, T, chunk=chunk, window=window,
-                                    verdict=vcfg)
-        eff_T, eff_win = runner.T, runner.window
-        group = [jobs[i] for i in idxs]
-        pp = from_leaves([leaves_of[(j.scenario, j.topo_seed)]
-                          for j in group], dims.n_nodes, dims.n_comp, dev)
-        inp = make_inputs(
-            pp, [j.lam for j in group], [j.eps_b for j in group],
-            [arrival_code(get_scenario(j.scenario).arrival) for j in group],
-            [event_code(get_scenario(j.scenario).events) for j in group],
-            [j.seed for j in group])
-        launch = launch_for(runner, inp)
-        launch.start(inp, max_rate)
-        launched = 0
-        while launched < runner.n_chunks:
-            launch.step()
-            launched += 1
-            if early_stop and launched < runner.n_chunks and bool(
-                    (launch.carry.drift.verdict != VERDICT_UNDECIDED).all()):
-                break
-        slot_steps += launched * runner.chunk
-        launch_saved += len(idxs) * (runner.n_chunks - launched) * runner.chunk
-        n_compiles += launch.n_compiles
-        out = {k: v.cpu().numpy() for k, v in
-               runner.finalize(launch.inp, launch.carry).items()}
-        for j, i in enumerate(idxs):
-            metrics[i] = {k: float(v[j]) for k, v in out.items()}
+    try:
+        for g, idxs in enumerate(groups.values()):
+            launched, runner, launch = _run_fleet_group(
+                g, [jobs[i] for i in idxs], T, chunk, window, vcfg, dims,
+                leaves_of, dev, early_stop, max_rate, sink)
+            eff_T, eff_win = runner.T, runner.window
+            slot_steps += launched * runner.chunk
+            launch_saved += (len(idxs) * (runner.n_chunks - launched)
+                             * runner.chunk)
+            n_compiles += launch.n_compiles
+            out = {k: v.cpu().numpy() for k, v in
+                   runner.finalize(launch.inp, launch.carry).items()}
+            for j, i in enumerate(idxs):
+                metrics[i] = {k: float(v[j]) for k, v in out.items()}
+    finally:
+        if sink is not None:
+            sink.close()
     return FleetResult(jobs=jobs, metrics=metrics, n_programs=len(groups),
                        n_sims=len(jobs), dims=dims, T=eff_T, window=eff_win,
                        slots_saved=int(sum(m["slots_saved"]
                                            for m in metrics)),
                        launch_slots_saved=launch_saved,
                        slot_steps=slot_steps, device=str(dev),
-                       n_step_compiles=n_compiles)
+                       n_step_compiles=n_compiles,
+                       stream_records=(sink.records if sink is not None
+                                       else []))
+
+
+def _run_fleet_group(g: int, group: List[FleetJob], T, chunk, window, vcfg,
+                     dims, leaves_of, dev, early_stop, max_rate, sink):
+    """Run one policy group of `run_fleet` to its end (or its early stop):
+    (chunks launched, runner, its `GroupLaunch`)."""
+    cfg = group[0].policy_config()
+    runner = make_stream_runner(cfg, T, chunk=chunk, window=window,
+                                verdict=vcfg)
+    pp = from_leaves([leaves_of[(j.scenario, j.topo_seed)] for j in group],
+                     dims.n_nodes, dims.n_comp, dev)
+    inp = make_inputs(
+        pp, [j.lam for j in group], [j.eps_b for j in group],
+        [arrival_code(get_scenario(j.scenario).arrival) for j in group],
+        [event_code(get_scenario(j.scenario).events) for j in group],
+        [j.seed for j in group])
+    launch = launch_for(runner, inp)
+    launch.start(inp, max_rate)
+    emitter = (ChunkEmitter("fleet", g, len(group), runner, sink)
+               if sink is not None else None)
+    launched = 0
+    try:
+        while launched < runner.n_chunks:
+            launch.step()
+            launched += 1
+            if emitter is not None:
+                # Snapshot the probe before the next chunk overwrites the
+                # carry in place; the record is assembled off the host loop.
+                emitter.emit(runner.probe(launch.carry))
+            if early_stop and launched < runner.n_chunks and bool(
+                    (launch.carry.drift.verdict != VERDICT_UNDECIDED).all()):
+                break
+    finally:
+        if emitter is not None:
+            emitter.close()
+    return launched, runner, launch

@@ -281,7 +281,8 @@ def find_lambda_max(scenario: str, policy: str = "pi3", *,
                     bracket: Tuple[float, float] = (0.5, 1.1),
                     max_calls: int = 24, early_stop: bool = True,
                     verdict: VerdictConfig | None = None,
-                    device=None, dims=None) -> FrontierResult:
+                    device=None, dims=None,
+                    stream_log=None) -> FrontierResult:
     """Locate the empirical λ_max of one (scenario, policy) pair by
     bisecting the offered rate over early-stopped `run_fleet` calls on
     ``device`` (CUDA unless the caller asks for the CPU).
@@ -290,7 +291,11 @@ def find_lambda_max(scenario: str, policy: str = "pi3", *,
     it is validated first and expanded or shrunk on the grid if need be.
     Every probe runs ``len(seeds)`` sims; it is sustainable iff all latch
     STABLE.  ``dims`` pins the padded topology dims (the atlas equivalence
-    tests pass the atlas-wide dims here)."""
+    tests pass the atlas-wide dims here).  ``stream_log`` taps every
+    probe's per-chunk telemetry: it is handed to each `run_fleet` call, so
+    records restart their (group, chunk, t) clocks per probe, a live
+    progress feed rather than one monotone stream (the atlas emits
+    that)."""
     dev = resolve_device(device)
     bound = policy_bound_exact(scenario, policy, eps_b, topo_seed=topo_seed)
     if bound <= 0.0:
@@ -311,7 +316,8 @@ def find_lambda_max(scenario: str, policy: str = "pi3", *,
         res = run_fleet(jobs, T=T, chunk=chunk, window=window,
                         early_stop=early_stop, verdict=verdict,
                         device=dev, dims=dims,
-                        max_rate=max(k_lo + 1, k_hi) * step)
+                        max_rate=max(k_lo + 1, k_hi) * step,
+                        stream_log=stream_log)
         launch_saved += res.launch_slots_saved
         n_compiles = res.n_step_compiles
         names = res.verdicts()

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.router import RouterState
+from ..device import resolve_device
 from .attention import (KVCache, attention, decode_attention, init_attn,
                         init_cache)
 from .common import (Init, embed, init_embedding, init_mlp, init_norm, norm,
@@ -127,10 +128,12 @@ def stack_fwd(cfg, p: dict, x, positions, *, remat: str = "full",
 
 
 def init_model_state(cfg, device=None) -> ModelState:
+    """The router queues of a MoE model (zeros), on ``device``: CUDA unless
+    the caller asks for the CPU."""
     if cfg.family == "moe":
         return ModelState(router_H=torch.zeros(
             (cfg.n_layers, cfg.n_experts), dtype=torch.float32,
-            device=device))
+            device=resolve_device(device)))
     return ModelState(router_H=None)
 
 
@@ -178,10 +181,11 @@ def lm_logits(cfg, params, tokens, *, activ_dtype=torch.bfloat16,
 
 def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):
     """Stacked caches mirroring the stack structure: {"layers": KVCache}
-    with a leading [L] axis on every field."""
+    with a leading [L] axis on every field, on ``device`` (CUDA unless the
+    caller asks for the CPU)."""
     _check_family(cfg)
     c = init_cache(cfg, batch, max_len, dtype, window=cfg.window,
-                   device=device)
+                   device=resolve_device(device))
     return {"layers": KVCache(*(
         t[None].repeat(cfg.n_layers, *([1] * t.dim())) for t in c))}
 

@@ -25,12 +25,16 @@ import numpy as np
 import torch
 from scipy import stats
 
+from repro_torch.device import resolve_device
+
 # Draw sites: one independent stream each.
 SITE_ARRIVAL = 1          # Poisson / Bernoulli-batch arrival uniforms
 SITE_ARRIVAL_PHASE = 2    # Markov ON-OFF phase flip
 SITE_REGULATOR = 3        # regulator B(t), one per comp node
 SITE_EVENT_LINK = 4       # link_flaps and Gilbert-Elliott link chains
 SITE_EVENT_COMP = 5       # comp_failures and Gilbert-Elliott comp chains
+SITE_CLASS_ARRIVAL = 6    # serving traces: each query class's arrival draw
+SITE_CLASS_PHASE = 7      # serving traces: each class's ON-OFF phase flip
 
 
 def _signed(x: int) -> int:
@@ -118,8 +122,9 @@ def poisson_from_uniform(u: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
 def poisson_arrivals(lams, T: int, seed: int = 0,
                      device=None) -> torch.Tensor:
     """[L, T] Poisson query counts, one row per rate of ``lams``, all rows
-    from one uniform stream of ``seed`` (common random numbers)."""
-    dev = torch.device(device) if device is not None else None
+    from one uniform stream of ``seed`` (common random numbers), on
+    ``device``: CUDA unless the caller asks for the CPU."""
+    dev = resolve_device(device)
     cdf = poisson_table(lams, device=dev)
     t = torch.arange(T, device=dev)
     s = torch.full((T,), int(seed), dtype=torch.long, device=dev)

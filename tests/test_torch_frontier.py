@@ -171,12 +171,13 @@ def test_bisection_steps_never_share_arrival_streams():
     the fold, probes at two rates, and a re-probe of one rate, draw
     different streams of the port's noise."""
     T = 256
-    same = [workload.poisson_arrivals([5.0], T, seed=0) for _ in range(2)]
+    same = [workload.poisson_arrivals([5.0], T, seed=0, device="cpu")
+            for _ in range(2)]
     assert torch.equal(same[0], same[1])
     s_lo = tfleet.fold_seed(0, rate_index=20, call_index=0, seed=0)
     s_hi = tfleet.fold_seed(0, rate_index=32, call_index=0, seed=0)
     s_again = tfleet.fold_seed(0, rate_index=20, call_index=1, seed=0)
-    u, v, w = (workload.poisson_arrivals([5.0], T, seed=s)
+    u, v, w = (workload.poisson_arrivals([5.0], T, seed=s, device="cpu")
                for s in (s_lo, s_hi, s_again))
     assert not torch.equal(u, v)
     assert not torch.equal(u, w)

@@ -152,3 +152,28 @@ def test_convert_and_router_state_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
         assert call(device="cpu").device.type == "cpu", name
+
+
+def test_arrivals_and_model_state_default_to_cuda(monkeypatch):
+    """The twin of the test above for the three entry points that built
+    their tensors on the CPU when given no device: `sim.poisson_arrivals`
+    and `models.transformer`'s `init_model_state` and
+    `init_decode_caches` resolve their device as every other entry point
+    does, CUDA unless asked, raising without a card."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer
+    from repro_torch.sim import poisson_arrivals
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("granite-moe-1b-a400m"))
+    calls = {
+        "poisson_arrivals": lambda **kw: poisson_arrivals([2.0, 5.0], 16,
+                                                          seed=3, **kw),
+        "init_model_state": lambda **kw: transformer.init_model_state(
+            cfg, **kw).router_H,
+        "init_decode_caches": lambda **kw: transformer.init_decode_caches(
+            cfg, 2, 8, torch.float32, **kw)["layers"].k,
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        assert call(device="cpu").device.type == "cpu", name
