@@ -72,6 +72,20 @@ on failure:
      lam), the outage shed-and-recover check; `phase_stream`: the fleet
      run of phase 3, the frontier and a small atlas with the stream on,
      bit-identical to the stream off, valid records, wall times;
+ 5d. preemption-safe runs (`phase_resilience`, `runtime.resilience`): the
+     fleet of phase 3 snapshot at every boundary, preempted after chunk 3
+     and resumed in this process, every metric and the slot accounting
+     bit-identical to phase 3's, no new capture, the fused launches of
+     the killed and the resumed run summing to the uninterrupted run's;
+     the carry's bytes, ms per snapshot (copy to host, sha256, write) and
+     the run's wall with and without snapshots; `phase_serving`'s run
+     killed at boundary 4 of 8 and resumed, its metrics and its stream
+     (seam stripped) byte-identical; a child process running the fleet
+     killed with SIGKILL, and a fresh process resuming from the newest
+     intact step to phase 3's metrics with one capture; the small atlas
+     of `phase_stream` killed mid-bucket and resumed to the same rows;
+     on 64 lanes two injected launch failures retried, and a host
+     dropout that parks every lane and plans a remesh;
   6. the MoE router (`core/router.route`) in the loop of
      benchmarks/bench_router.py: backpressure must balance better than
      plain top-k;
@@ -254,6 +268,13 @@ OUTAGE = dict(scenario="outage_grid", trace="bursty", frac=0.95,
               seeds=(0, 1), T=4096, chunk=256, after_t=3072, qps_frac=0.9)
 #: phase_stream: the small atlas run with the stream on and off.
 STREAM_ATLAS = dict(families=("paper_grid", "ring"), topo_seeds=range(4))
+#: phase_resilience: the fleet's preemption boundary, the serving run's,
+#: the chunk records the child process streams before it is killed, the
+#: lanes of the fault runs, and the snapshots timed per carry.
+RESILIENCE_KILL, SERVING_KILL, CHILD_KILL_RECORDS = 3, 4, 3
+FAULT_LANES = 64
+SNAPSHOT_REPS = 5
+CHILD_TIMEOUT_S = 300
 
 #: Published peaks of the H100 SXM (NVIDIA's data sheet, at 700 W): memory
 #: bytes/s, float32 operations/s outside the tensor cores, and dense
@@ -1619,7 +1640,7 @@ def phase_serving(dev):
         runner, len(jobs), dims,
         torch.device("cuda", torch.cuda.current_device()), codes)
     profile_graph(launch, CHUNK_MAIN, f"serving path's ({SERVING_TRACE})")
-    return fused["launched"], walls
+    return fused["launched"], walls, res
 
 
 def phase_serving_parity(dev):
@@ -1741,10 +1762,10 @@ def phase_stream(dev, main_res, jobs, frontier_results):
     (FRONTIER_SMOKE's first target) with ``stream_log``: the same result
     as `phase_frontier`'s, valid records.  A small atlas (two families x 4
     topo_seeds, ATLAS's other settings), stream on against off: the same
-    rows, launches and captures, one valid record per launch."""
+    rows, launches and captures, one valid record per launch.  Returns
+    the wall times and the stream-off atlas result."""
     import torch
-    from repro_torch.fleet import (PadDims, find_lambda_max,
-                                   registry_cells, run_fleet,
+    from repro_torch.fleet import (PadDims, find_lambda_max, run_fleet,
                                    sweep_lambda_max)
     from repro_torch.obs import schema
     dims = PadDims(N_MAIN, E_MAIN, NC_MAIN)
@@ -1785,12 +1806,7 @@ def phase_stream(dev, main_res, jobs, frontier_results):
           f"stream: the frontier with stream_log differs ({len(seen)} "
           f"records, {len(bad)} invalid)")
 
-    a = dict(ATLAS)
-    cells = registry_cells(STREAM_ATLAS["families"],
-                           STREAM_ATLAS["topo_seeds"],
-                           policy=a.pop("policy"), eps_b=a.pop("eps_b"))
-    for k in ("families", "topo_seeds"):
-        a.pop(k)
+    cells, a = stream_atlas()
     atlas = {}
     for stream in (False, True):
         torch.cuda.synchronize()
@@ -1813,7 +1829,417 @@ def phase_stream(dev, main_res, jobs, frontier_results):
         f"{len(y.stream_records)} records; wall "
         + "; ".join(f"{k} {w:.3f} s" for k, w in walls.items())
         + f" ({card_line()})")
-    return walls
+    return walls, x
+
+
+def stream_atlas():
+    """The small atlas of `phase_stream` and `phase_resilience`:
+    STREAM_ATLAS's cells with ATLAS's other settings."""
+    from repro_torch.fleet import registry_cells
+    a = dict(ATLAS)
+    cells = registry_cells(STREAM_ATLAS["families"],
+                           STREAM_ATLAS["topo_seeds"],
+                           policy=a.pop("policy"), eps_b=a.pop("eps_b"))
+    for k in ("families", "topo_seeds"):
+        a.pop(k)
+    return cells, a
+
+
+def carry_bytes(ckpt_dir) -> int:
+    """Bytes of the carry in the newest step of a checkpoint directory
+    that holds one (a group's end marker holds none), from its manifest's
+    shapes and dtypes."""
+    import numpy as np
+    for step in sorted(pathlib.Path(ckpt_dir).glob("step_*"), reverse=True):
+        m = json.loads((step / "manifest.json").read_text())
+        if m["n_arrays"]:
+            break
+    return int(sum(np.dtype("uint16" if d == "bfloat16" else d).itemsize
+                   * math.prod(shape)
+                   for d, shape in zip(m["dtypes"], m["shapes"])))
+
+
+def snapshot_ms(carry, where) -> dict:
+    """Median milliseconds of SNAPSHOT_REPS `Checkpointer.save` calls of
+    ``carry``: the copy to host memory, the sha256 digests and the disk
+    write, each apart."""
+    from repro_torch.checkpoint import Checkpointer
+    ck = Checkpointer(where, keep=2)
+    ms = []
+    for i in range(SNAPSHOT_REPS):
+        ck.save(i, carry)
+        ms.append(dict(ck.last_ms))
+    return {k: round(statistics.median(m[k] for m in ms), 4)
+            for k in ("copy", "sha256", "write")}
+
+
+def fleet_child_argv(ckpt, stream, out, go=None) -> list:
+    return [sys.executable, str(ROOT / "chip_smoke.py"),
+            "--resilience-child", str(ckpt), str(stream), str(out)] + \
+        ([str(go)] if go is not None else [])
+
+
+def resilience_child(ckpt: str, stream: str, out: str,
+                     go: str | None = None) -> int:
+    """The child process of `phase_resilience`'s real kill: the main
+    path's fleet with a snapshot at every boundary, written on a
+    background thread, streamed to ``stream``; it resumes from ``ckpt``
+    when a snapshot is there.  With ``go`` it sets itself up (torch, the
+    card, the jobs) and then waits for that file before it runs.  Writes
+    its metrics, accounting and set-up and run seconds to ``out`` as
+    JSON."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.fleet import PadDims, run_fleet
+    from repro_torch.kernels.bp_slot import kernel as K
+    from repro_torch.runtime import ResilienceConfig
+    if not torch.cuda.is_available():
+        print("resilience child: no CUDA device", file=sys.stderr)
+        return 1
+    torch.zeros(1, device="cuda")
+    jobs, _ = main_jobs()
+    setup_s = time.perf_counter() - t0
+    if go is not None:
+        while not pathlib.Path(go).exists():
+            if time.perf_counter() - t0 > CHILD_TIMEOUT_S:
+                print("resilience child: no go", file=sys.stderr)
+                return 1
+            time.sleep(0.005)
+    t1 = time.perf_counter()
+    reset_fused_counts(K)
+    res = run_fleet(jobs, T=T_MAIN, chunk=CHUNK_MAIN, device="cuda",
+                    dims=PadDims(N_MAIN, E_MAIN, NC_MAIN), early_stop=True,
+                    stream_path=stream,
+                    resilience=ResilienceConfig(checkpoint_dir=ckpt,
+                                                every=1, blocking=False))
+    torch.cuda.synchronize()
+    pathlib.Path(out).write_text(json.dumps({
+        "metrics": res.metrics, "resumed_from": res.resumed_from,
+        "n_step_compiles": res.n_step_compiles,
+        "slots_saved": res.slots_saved,
+        "launch_slots_saved": res.launch_slots_saved,
+        "launched": fused_launches(K)["launched"],
+        "setup_s": setup_s, "run_s": time.perf_counter() - t1}))
+    return 0
+
+
+def real_kill(tmp: pathlib.Path, out: dict) -> None:
+    """`phase_resilience`'s real kill, run on a thread: child A runs the
+    fleet until its stream holds CHILD_KILL_RECORDS chunk records and
+    gets SIGKILL; child B, started beside it and set up while A runs,
+    then resumes from A's checkpoints.  Fills ``out`` (``error`` on a
+    failure); every child is stopped before it returns."""
+    import os
+    import signal
+    ck, stream = tmp / "child", tmp / "FLEET_stream.jsonl"
+    go = tmp / "child_go"
+    t0 = time.perf_counter()
+    with open(tmp / "child_a.err", "w") as ea, \
+            open(tmp / "child_b.err", "w") as eb:
+        a = subprocess.Popen(fleet_child_argv(ck, stream, tmp / "a.json"),
+                             stdout=subprocess.DEVNULL, stderr=ea)
+        b = subprocess.Popen(fleet_child_argv(ck, stream, tmp / "b.json",
+                                              go),
+                             stdout=subprocess.DEVNULL, stderr=eb)
+        try:
+            n_recs = 0
+            while a.poll() is None and \
+                    time.perf_counter() - t0 < CHILD_TIMEOUT_S:
+                if stream.exists():
+                    n_recs = stream.read_text().count('"kind": "fleet"')
+                    if n_recs >= CHILD_KILL_RECORDS:
+                        break
+                time.sleep(0.005)
+            if a.poll() is not None or n_recs < CHILD_KILL_RECORDS:
+                out["error"] = (f"child A ended (rc {a.poll()}) or timed "
+                                f"out with {n_recs} records before the "
+                                f"kill: {(tmp / 'child_a.err').read_text()[-2000:]}")
+                return
+            os.kill(a.pid, signal.SIGKILL)
+            a.wait(timeout=60)
+            out.update(n_recs=n_recs, kill_s=time.perf_counter() - t0,
+                       steps=sorted(p.name for p in ck.glob("step_*")))
+            go.touch()
+            rc = b.wait(timeout=CHILD_TIMEOUT_S)
+            if rc != 0:
+                out["error"] = (f"child B failed (rc {rc}): "
+                                f"{(tmp / 'child_b.err').read_text()[-2000:]}")
+                return
+            out.update(json.loads((tmp / "b.json").read_text()),
+                       wall_s=time.perf_counter() - t0)
+        except Exception as e:          # reported by phase_resilience
+            out["error"] = repr(e)
+        finally:
+            for c in (a, b):
+                if c.poll() is None:
+                    c.kill()
+                    c.wait()
+
+
+def phase_resilience(dev, main_res, jobs, serving_res, atlas_base):
+    """Preemption-safe runs (`runtime.resilience`) at full width.
+
+    1. The main path's 1,512 jobs with a snapshot at every boundary and a
+       preemption after chunk RESILIENCE_KILL, then resumed in this
+       process: every metric, slots_saved and launch_slots_saved equal to
+       `phase_main`'s, resumed from that boundary, no new capture, and
+       the fused launches of the killed and the resumed run summing to
+       the uninterrupted run's.  The carry's bytes, ms per snapshot (the
+       copy to host memory, sha256, the write) and the wall of the run
+       without resilience, with a blocking snapshot per boundary and with
+       a background write.
+    2. `phase_serving`'s 1,512 lanes, streamed, killed at boundary
+       SERVING_KILL of 8 and resumed: metrics equal to `phase_serving`'s,
+       and its stream, the seam stripped, that run's byte for byte.
+    3. A real kill (`real_kill`, on a thread beside items 2, 4 and 5): a
+       child process runs item 1's fleet (snapshots written in the
+       background) and gets SIGKILL once its stream file holds
+       CHILD_KILL_RECORDS chunk records; a second child resumes from the
+       newest intact step: item 1's metrics, one capture.
+    4. The small atlas of `phase_stream`, killed mid-bucket and resumed:
+       its rows, launches, bucket launches and re-queues; one capture per
+       program in all.
+    5. Faults on FAULT_LANES lanes: two injected launch failures retried
+       to the same metrics; the dropout of host 0 parks every lane (one
+       device), the run finishes, every job degraded, the plan a remesh.
+    Returns the fused slot-step launches of the runs above."""
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from repro_torch.fleet import PadDims, engine, run_fleet, \
+        sweep_lambda_max
+    from repro_torch.kernels.bp_slot import kernel as K
+    from repro_torch.obs import schema
+    from repro_torch.runtime import FaultPlane, Preempted, ResilienceConfig
+    from repro_torch.serving import get_trace, make_serving_runner, \
+        run_serving
+    from repro_torch.fleet.scenarios import event_code, get_scenario
+    dims = PadDims(N_MAIN, E_MAIN, NC_MAIN)
+    kw = dict(T=T_MAIN, chunk=CHUNK_MAIN, device=dev, dims=dims,
+              early_stop=True)
+    total = 0
+
+    def counted(fn, *a, **k):
+        nonlocal total
+        reset_fused_counts(K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            counted.wall = time.perf_counter() - t0
+            counted.launched = fused_launches(K)["launched"]
+            total += counted.launched
+
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="resilience_"))
+    killer = None
+    try:
+        # -- 1. the fleet, killed and resumed in this process -------------
+        plain = counted(run_fleet, jobs, **kw)
+        walls = {"no resilience": counted.wall}
+        check(not differing(plain.metrics, main_res.metrics) and
+              counted.launched == main_res.slot_steps,
+              "resilience: the plain fleet run differs from phase_main's")
+        captured = K.slot_step_fused.captured
+        ck = tmp / "fleet"
+        try:
+            counted(run_fleet, jobs, **kw, resilience=ResilienceConfig(
+                checkpoint_dir=str(ck), every=1,
+                fault_plane=FaultPlane.preempt_after(RESILIENCE_KILL)))
+            check(False, "resilience: the fleet run was not preempted")
+        except Preempted:
+            pass
+        killed = counted.launched
+        res = counted(run_fleet, jobs, **kw,
+                      resilience=ResilienceConfig(checkpoint_dir=str(ck)))
+        resumed = counted.launched
+        diff = differing(res.metrics, main_res.metrics)
+        check(not diff and res.slots_saved == main_res.slots_saved and
+              res.launch_slots_saved == main_res.launch_slots_saved and
+              res.resumed_from == RESILIENCE_KILL,
+              f"resilience: the resumed fleet differs in {len(diff)} sims, "
+              f"slots_saved {res.slots_saved} / {main_res.slots_saved}, "
+              f"launch_slots_saved {res.launch_slots_saved} / "
+              f"{main_res.launch_slots_saved}, from {res.resumed_from}")
+        check(K.slot_step_fused.captured == captured,
+              "resilience: the killed or resumed fleet captured anew")
+        check(killed > 0 and resumed > 0 and
+              killed + resumed == main_res.slot_steps,
+              f"resilience: fused launches killed {killed} + resumed "
+              f"{resumed} != {main_res.slot_steps}")
+        fleet_bytes = carry_bytes(ck)
+        for name, blocking in (("every=1, blocking", True),
+                               ("every=1, background write", False)):
+            r = counted(run_fleet, jobs, **kw, resilience=ResilienceConfig(
+                checkpoint_dir=str(tmp / f"wall_{blocking}"),
+                blocking=blocking))
+            walls[name] = counted.wall
+            check(not differing(r.metrics, main_res.metrics),
+                  f"resilience: fleet with {name} differs")
+        _, inp = main_batch(dev)
+        fleet_snap = snapshot_ms(engine.launch_for(main_runner(), inp).carry,
+                                 tmp / "snap_fleet")
+        n_chunks = main_res.slot_steps // CHUNK_MAIN
+        log(f"resilience: fleet ({len(jobs)} sims, {n_chunks} chunks) "
+            f"killed after chunk {RESILIENCE_KILL} and resumed: every "
+            f"metric bit-identical, no new capture, fused launches {killed}"
+            f" + {resumed} = {main_res.slot_steps}; carry {fleet_bytes} B "
+            f"per snapshot, ms per snapshot {json.dumps(fleet_snap)}; wall "
+            + "; ".join(f"{k} {w:.4f} s ({w / walls['no resilience'] - 1:+.4f})"
+                        for k, w in walls.items())
+            + f" ({card_line()})")
+
+        # -- 3. a real kill, on a thread beside items 2, 4 and 5 ---------
+        killed_child: dict = {}
+        killer = threading.Thread(target=real_kill, args=(tmp, killed_child),
+                                  daemon=True)
+        killer.start()
+
+        # -- 2. serving, killed at boundary SERVING_KILL and resumed ------
+        sjobs, _ = serving_jobs()
+        skw = dict(T=T_MAIN, chunk=CHUNK_MAIN, device=dev, dims=dims)
+        path, sck = tmp / "SERVING_stream.jsonl", tmp / "serving"
+        try:
+            counted(run_serving, sjobs, **skw, stream_path=str(path),
+                    resilience=ResilienceConfig(
+                        checkpoint_dir=str(sck),
+                        fault_plane=FaultPlane.preempt_after(SERVING_KILL)))
+            check(False, "resilience: the serving run was not preempted")
+        except Preempted:
+            pass
+        s_killed = counted.launched
+        s_wall = counted.wall
+        sres = counted(run_serving, sjobs, **skw, stream_path=str(path),
+                       resilience=ResilienceConfig(checkpoint_dir=str(sck)))
+        s_wall += counted.wall
+        diff = differing(sres.metrics, serving_res.metrics)
+        lines = path.read_text().splitlines()
+        recs = [json.loads(x) for x in lines]
+        kept = [x for x, r in zip(lines, recs) if r["kind"] != "resume"]
+        seams = [r for r in recs if r["kind"] == "resume"]
+        check(not diff and sres.resumed_from == SERVING_KILL,
+              f"resilience: resumed serving differs in {len(diff)} lanes")
+        check(kept == [schema.jsonl_line(r)
+                       for r in serving_res.stream_records]
+              and len(seams) == 1 and not schema.validate_stream(recs),
+              "resilience: the resumed serving stream, seam stripped, is "
+              "not phase_serving's")
+        check(s_killed + counted.launched == serving_res.slot_steps,
+              f"resilience: serving fused launches {s_killed} + "
+              f"{counted.launched} != {serving_res.slot_steps}")
+        serving_bytes = carry_bytes(sck)
+        runner = make_serving_runner(sjobs[0].policy_config(),
+                                     get_trace(SERVING_TRACE), T_MAIN,
+                                     chunk=CHUNK_MAIN)
+        codes = tuple(sorted({event_code(get_scenario(j.scenario).events)
+                              for j in sjobs}))
+        slaunch = engine.make_group_launch(
+            runner, len(sjobs), dims,
+            torch.device("cuda", torch.cuda.current_device()), codes)
+        serving_snap = snapshot_ms(slaunch.carry, tmp / "snap_serving")
+        log(f"resilience: serving ({len(sjobs)} lanes, {SERVING_TRACE}) "
+            f"killed at boundary {SERVING_KILL} of {sres.T // CHUNK_MAIN} "
+            f"and resumed: metrics bit-identical, the stream (seam "
+            f"stripped) byte-identical, {len(recs)} records with the seam;"
+            f" {s_wall:.3f} s both runs; carry {serving_bytes} B per "
+            f"snapshot, ms per snapshot {json.dumps(serving_snap)}")
+
+        # -- 4. the small atlas, killed mid-bucket and resumed -------------
+        cells, a = stream_atlas()
+        b0 = min(b for b, n in atlas_base.bucket_launches.items() if n)
+        kill = max(1, atlas_base.bucket_launches[b0] // 2)
+        ack = tmp / "atlas"
+        captured = K.slot_step_fused.captured
+        try:
+            counted(sweep_lambda_max, cells, device=dev, **a,
+                    resilience=ResilienceConfig(
+                        checkpoint_dir=str(ack),
+                        fault_plane=FaultPlane.preempt_after(kill)))
+            check(False, "resilience: the atlas was not preempted")
+        except Preempted:
+            pass
+        a_wall = counted.wall
+        ares = counted(sweep_lambda_max, cells, device=dev, **a,
+                       resilience=ResilienceConfig(checkpoint_dir=str(ack)))
+        a_wall += counted.wall
+        check(ares.rows == atlas_base.rows and
+              ares.n_launches == atlas_base.n_launches and
+              ares.bucket_launches == atlas_base.bucket_launches and
+              ares.n_requeues == atlas_base.n_requeues and
+              ares.resumed_from == kill,
+              f"resilience: the resumed atlas differs (launches "
+              f"{ares.n_launches} / {atlas_base.n_launches}, buckets "
+              f"{ares.bucket_launches} / {atlas_base.bucket_launches})")
+        check(ares.n_step_compiles == ares.n_programs and
+              K.slot_step_fused.captured == captured,
+              f"resilience: atlas {ares.n_step_compiles} captures for "
+              f"{ares.n_programs} programs, or captured anew")
+        log(f"resilience: atlas ({len(cells)} cells, {ares.n_launches} "
+            f"launches, buckets {ares.bucket_launches}) killed after launch"
+            f" {kill} (mid-bucket {b0}) and resumed: rows, launches and "
+            f"re-queues equal, {ares.n_step_compiles} captures for "
+            f"{ares.n_programs} programs; {a_wall:.3f} s both runs")
+
+        # -- 5. faults --------------------------------------------------
+        fjobs = jobs[::len(jobs) // FAULT_LANES][:FAULT_LANES]
+        fbase = counted(run_fleet, fjobs, **kw)
+        fail = counted(run_fleet, fjobs, **kw, resilience=ResilienceConfig(
+            fault_plane=FaultPlane.launch_fail(at_launch=1, fails=2)))
+        check(not differing(fail.metrics, fbase.metrics) and
+              fail.n_fault_retries == 2 and fail.degraded == {},
+              f"resilience: the retried run differs or retried "
+              f"{fail.n_fault_retries} times")
+        drop = counted(run_fleet, fjobs, **kw, resilience=ResilienceConfig(
+            fault_plane=FaultPlane.host_dropout(host=0, at_launch=2)))
+        plan = drop.recovery_plan
+        check(len(drop.metrics) == len(fjobs) and
+              drop.degraded == {i: "host_dropout:host0"
+                                for i in range(len(fjobs))} and
+              drop.verdicts() == ["UNSTABLE"] * len(fjobs) and
+              plan is not None and plan.action == "remesh" and
+              plan.evict == ("host0",),
+              f"resilience: host dropout: {len(drop.degraded)} degraded, "
+              f"plan {plan}")
+        log(f"resilience: {len(fjobs)} lanes: 2 injected launch failures "
+            f"retried, metrics bit-identical; host 0 dropped at launch 2: "
+            f"every lane parked, {len(drop.degraded)} jobs degraded, plan "
+            f"{plan.action} evict {plan.evict} ({plan.note})")
+
+        # -- 3, read -----------------------------------------------------
+        killer.join()
+        got = killed_child
+        check("error" not in got, f"resilience: real kill: "
+              f"{got.get('error')}")
+        diff = differing(got["metrics"], main_res.metrics)
+        crecs = schema.read_stream_jsonl(str(tmp / "FLEET_stream.jsonl"))
+        check(not diff and got["resumed_from"] is not None and
+              got["n_step_compiles"] == 1 and got["launched"] > 0 and
+              got["launch_slots_saved"] == main_res.launch_slots_saved,
+              f"resilience: the resumed child differs in {len(diff)} sims "
+              f"(from {got['resumed_from']}, {got['n_step_compiles']} "
+              f"captures)")
+        check(any(r["kind"] == "resume" for r in crecs) and
+              not schema.validate_stream(crecs),
+              "resilience: the child's merged stream is not valid")
+        total += got["launched"]
+        log(f"resilience: a child killed (SIGKILL) after {got['n_recs']} "
+            f"chunk records, {got['kill_s']:.1f} s after its start, with "
+            f"{got['steps']} on disk; a second process, set up beside it "
+            f"in {got['setup_s']:.1f} s, resumed from step "
+            f"{got['resumed_from']} in {got['run_s']:.2f} s: every metric "
+            f"bit-identical, 1 capture, {got['launched']} fused launches; "
+            f"merged stream valid ({len(crecs)} records); both children "
+            f"{got['wall_s']:.1f} s, beside items 2, 4 and 5")
+        log(f"resilience: phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        if killer is not None:
+            killer.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2988,15 +3414,18 @@ def main() -> int:
     frontier_launches, frontier_results = phase_frontier(dev)
     atlas_launches, _ = phase_atlas(dev)
     smoke_launches = phase_serving_smoke(dev)
-    serving_launches, _ = phase_serving(dev)
+    serving_launches, _, serving_res = phase_serving(dev)
     phase_serving_parity(dev)
-    phase_stream(dev, res, jobs, frontier_results)
+    _, stream_atlas_res = phase_stream(dev, res, jobs, frontier_results)
+    resilience_launches = phase_resilience(dev, res, jobs, serving_res,
+                                           stream_atlas_res)
     rows["bp_slot_step"]["path"] = (
         f"run_fleet, graphed (phase_main; launches counted there); "
         f"find_lambda_max, {frontier_launches} more (phase_frontier); "
         f"sweep_lambda_max, {atlas_launches} more (phase_atlas); "
         f"run_serving, {smoke_launches} (phase_serving_smoke) and "
-        f"{serving_launches} (phase_serving) more")
+        f"{serving_launches} (phase_serving) more; resumed runs, "
+        f"{resilience_launches} more (phase_resilience)")
     phase_router(dev)
     launches["bp_topk_route"] = phase_serve(dev)
     rows["bp_topk_route"]["path"] = ("Engine decode steps (phase_serve); "
@@ -3034,4 +3463,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resilience-child"]:
+        sys.exit(resilience_child(*sys.argv[2:6]))
     sys.exit(main())

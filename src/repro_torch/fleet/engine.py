@@ -698,12 +698,19 @@ class FleetResult:
     slots_saved: int = 0          # sum of per-sim frozen slots (early stop)
     launch_slots_saved: int = 0   # sim-slots of chunks never run once a
                                   # whole group had decided
-    slot_steps: int = 0           # batched slot steps run, over all groups
+    slot_steps: int = 0           # batched slot steps this call ran, over
+                                  # all groups
     device: str = ""
     n_step_compiles: int = 0      # chunk programs of the groups' launchers:
                                   # graph captures on CUDA, launchers on the
                                   # CPU (cumulative per launcher)
     stream_records: List[dict] = dataclasses.field(default_factory=list)
+    resumed_from: int | None = None   # checkpoint step this run restored
+                                      # (`runtime.resilience`); None = fresh
+    degraded: Dict[int, str] = dataclasses.field(default_factory=dict)
+                                  # job index -> why its lane was parked
+    recovery_plan: object | None = None   # runtime.fault.RecoveryPlan
+    n_fault_retries: int = 0      # injected launch failures retried
 
     def column(self, name: str) -> np.ndarray:
         return np.array([m[name] for m in self.metrics])
@@ -728,7 +735,8 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
               max_rate: float = 0.0,
               stream: bool = False,
               stream_log: Callable[[dict], None] | None = None,
-              stream_path: str | None = None) -> FleetResult:
+              stream_path: str | None = None,
+              resilience=None) -> FleetResult:
     """Run the whole sweep, one batch per policy group, on ``device``
     (CUDA unless the caller asks for the CPU).
 
@@ -747,9 +755,20 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
     and every metric bit-identical).  Records land in
     ``FleetResult.stream_records``; ``stream_path`` appends them live as
     JSONL, and ``stream_log`` is called per record on the emitter's worker
-    thread.  (The reference's ``resilience`` is not ported yet.)"""
+    thread.
+
+    ``resilience`` (a `runtime.resilience.ResilienceConfig`) makes the run
+    preemption-safe: the carry and the host cursor are snapshot at chunk
+    boundaries (copied to host memory before the next chunk overwrites the
+    carry), a killed run resumes bit-exact from the newest intact
+    checkpoint (the carry written into the launch's tensors in place, so
+    a same-process resume captures nothing new; the stream file appended
+    to, deduplicated, with one ``resume`` record at the seam), injected
+    launch failures retry with bounded backoff, and a host dropout parks
+    its lanes through `make_sim_rewriter`, surfaced in
+    ``FleetResult.degraded``/``recovery_plan`` rather than aborting."""
+    from repro_torch.runtime.resilience import RunProgress, maybe_resilient
     dev = resolve_device(device)
-    sink = open_sink(stream, stream_log, stream_path)
     jobs = list(jobs)
     vcfg = resolve_verdict(verdict, early_stop)
     problem_of: Dict[tuple, ComputeProblem] = {}
@@ -764,41 +783,70 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
     for i, job in enumerate(jobs):
         groups.setdefault(_policy_group_key(job), []).append(i)
 
-    metrics: List[Dict[str, float] | None] = [None] * len(jobs)
+    rt = maybe_resilient(resilience, "fleet", jobs=tuple(jobs), T=T,
+                         chunk=chunk, window=window, verdict=vcfg,
+                         early_stop=early_stop, dims=dims, ndev=1)
+    resumed = rt.resumed if rt is not None else None
+    prog = RunProgress.start(len(jobs), resumed)
+    sink = open_sink(stream, stream_log, stream_path,
+                     append=resumed is not None)
     eff_T = eff_win = 0
-    launch_saved = slot_steps = n_compiles = 0
+    slot_steps = n_compiles = 0
     try:
         for g, idxs in enumerate(groups.values()):
-            launched, runner, launch = _run_fleet_group(
-                g, [jobs[i] for i in idxs], T, chunk, window, vcfg, dims,
-                leaves_of, dev, early_stop, max_rate, sink)
+            if resumed is not None and g < resumed["group"]:
+                # Finished before the kill: its metrics were restored.
+                runner = make_stream_runner(
+                    jobs[idxs[0]].policy_config(), T, chunk=chunk,
+                    window=window, verdict=vcfg)
+                eff_T, eff_win = runner.T, runner.window
+                continue
+            ran, launched, runner, launch = _run_fleet_group(
+                g, idxs, jobs, T, chunk, window, vcfg, dims, leaves_of, dev,
+                early_stop, max_rate, sink, rt, prog)
             eff_T, eff_win = runner.T, runner.window
-            slot_steps += launched * runner.chunk
-            launch_saved += (len(idxs) * (runner.n_chunks - launched)
-                             * runner.chunk)
+            slot_steps += ran * runner.chunk
+            prog.launch_saved += (len(idxs) * (runner.n_chunks - launched)
+                                  * runner.chunk)
             n_compiles += launch.n_compiles
             out = {k: v.cpu().numpy() for k, v in
                    runner.finalize(launch.inp, launch.carry).items()}
             for j, i in enumerate(idxs):
-                metrics[i] = {k: float(v[j]) for k, v in out.items()}
+                prog.metrics[i] = {k: float(v[j]) for k, v in out.items()}
+            if rt is not None:
+                # Group-boundary marker: a kill between groups resumes at
+                # g + 1 with the finished metrics, never re-running g.
+                rt.snapshot(prog.glaunch, (), prog.extra(g + 1, 0))
     finally:
         if sink is not None:
             sink.close()
+        if rt is not None:
+            rt.wait()
+    metrics = prog.metrics
     return FleetResult(jobs=jobs, metrics=metrics, n_programs=len(groups),
                        n_sims=len(jobs), dims=dims, T=eff_T, window=eff_win,
                        slots_saved=int(sum(m["slots_saved"]
                                            for m in metrics)),
-                       launch_slots_saved=launch_saved,
+                       launch_slots_saved=prog.launch_saved,
                        slot_steps=slot_steps, device=str(dev),
                        n_step_compiles=n_compiles,
                        stream_records=(sink.records if sink is not None
-                                       else []))
+                                       else []),
+                       resumed_from=(resumed["ckpt_step"]
+                                     if resumed is not None else None),
+                       degraded=prog.degraded, recovery_plan=prog.recovery,
+                       n_fault_retries=rt.n_retries if rt is not None else 0)
 
 
-def _run_fleet_group(g: int, group: List[FleetJob], T, chunk, window, vcfg,
-                     dims, leaves_of, dev, early_stop, max_rate, sink):
-    """Run one policy group of `run_fleet` to its end (or its early stop):
-    (chunks launched, runner, its `GroupLaunch`)."""
+def _run_fleet_group(g: int, idxs: List[int], jobs, T, chunk, window, vcfg,
+                     dims, leaves_of, dev, early_stop, max_rate, sink, rt,
+                     prog):
+    """Run one policy group of `run_fleet` to its end (or its early stop),
+    resuming it from ``rt``'s checkpoint when the run resumes in it:
+    (chunks this call ran, chunks launched in all, runner, its
+    `GroupLaunch`)."""
+    from repro_torch.runtime.resilience import resume_group
+    group = [jobs[i] for i in idxs]
     cfg = group[0].policy_config()
     runner = make_stream_runner(cfg, T, chunk=chunk, window=window,
                                 verdict=vcfg)
@@ -813,19 +861,38 @@ def _run_fleet_group(g: int, group: List[FleetJob], T, chunk, window, vcfg,
     launch.start(inp, max_rate)
     emitter = (ChunkEmitter("fleet", g, len(group), runner, sink)
                if sink is not None else None)
-    launched = 0
     try:
+        launched = first = resume_group(rt, g, launch, runner, emitter, sink,
+                                        len(group), "fleet")
         while launched < runner.n_chunks:
-            launch.step()
+            if early_stop and launched > 0 and bool(
+                    (launch.carry.drift.verdict != VERDICT_UNDECIDED).all()):
+                break               # every sim decided: nothing left to run
+            if rt is not None:
+                rt.launch(g, prog.glaunch, launch.step)
+            else:
+                launch.step()
             launched += 1
+            prog.glaunch += 1
             if emitter is not None:
                 # Snapshot the probe before the next chunk overwrites the
                 # carry in place; the record is assembled off the host loop.
                 emitter.emit(runner.probe(launch.carry))
-            if early_stop and launched < runner.n_chunks and bool(
-                    (launch.carry.drift.verdict != VERDICT_UNDECIDED).all()):
-                break
+            if rt is not None:
+                lane_dead = prog.drop_hosts(rt.dead_hosts(prog.glaunch),
+                                            idxs)
+                if lane_dead is not None:
+                    # Park the dead lanes: their verdict leaf is forced
+                    # UNSTABLE (frozen under early stop).
+                    make_sim_rewriter(launch)(np.zeros(len(idxs), bool),
+                                              lane_dead)
+                if rt.should_snapshot(prog.glaunch):
+                    rt.snapshot(prog.glaunch, launch.carry,
+                                prog.extra(g, launched))
+                # After the snapshot: a preemption here leaves a durable,
+                # bit-exact resume point.
+                rt.maybe_preempt(prog.glaunch)
     finally:
         if emitter is not None:
             emitter.close()
-    return launched, runner, launch
+    return launched - first, launched, runner, launch

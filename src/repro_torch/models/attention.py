@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention_op
 from .common import Init, apply_rope
 
@@ -122,6 +123,9 @@ def attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
 def init_cache(cfg, batch: int, max_len: int, dtype, *,
                kv_heads: int | None = None, window: Optional[int] = None,
                device=None) -> KVCache:
+    """An empty KV cache on ``device``: CUDA unless the caller asks for
+    the CPU."""
+    device = resolve_device(device)
     KH = kv_heads or cfg.n_kv_heads
     T_cache = min(window, max_len) if window else max_len
     shape = (batch, T_cache, KH, cfg.head_dim)

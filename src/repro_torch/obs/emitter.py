@@ -32,6 +32,7 @@ raises any error it met.
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Callable, Dict, List
@@ -51,18 +52,52 @@ class StreamSink:
     """Fan-out for finished records: accumulate them, optionally append
     JSONL to ``path`` (flushed per record, so a follow tail sees them
     live), optionally call ``log``.  Thread-safe: records arrive on the
-    emitters' worker threads.  (The reference's ``append`` mode belongs to
-    resumed runs, which the port does not have yet.)"""
+    emitters' worker threads.
+
+    ``append=True`` is the resumed-run mode: an existing file is preloaded
+    (its records seed ``self.records``, cut to the parseable prefix, so a
+    killed writer's torn last line is dropped) and later writes are
+    deduplicated against the per-(kind, group) chunk clock.  A resumed
+    engine replays the launches after its snapshot, so a record the
+    killed run already made durable comes again bit-identically:
+    suppressing ``chunk <= last_seen`` leaves exactly the uninterrupted
+    stream.  ``resume`` records, which mark the seam, are exempt."""
 
     def __init__(self, path: str | None = None,
-                 log: Callable[[dict], None] | None = None):
+                 log: Callable[[dict], None] | None = None,
+                 append: bool = False):
         self.records: List[dict] = []
         self._log = log
         self._lock = threading.Lock()
-        self._f = open(path, "w") if path else None
+        self._clock: Dict[tuple, int] = {}   # (kind, group) -> last chunk
+        self._dedupe = False
+        self.n_preloaded = 0
+        if path and append and os.path.exists(path):
+            existing = schema.read_stream_jsonl(path)
+            with open(path, "w") as f:        # drop any torn trailing line
+                for rec in existing:
+                    f.write(schema.jsonl_line(rec) + "\n")
+            self.records.extend(existing)
+            self.n_preloaded = len(existing)
+            for rec in existing:
+                if rec.get("kind") != "resume":
+                    key = (rec.get("kind"), rec.get("group"))
+                    c = self._clock.get(key)
+                    if c is None or rec.get("chunk", 0) > c:
+                        self._clock[key] = rec.get("chunk", 0)
+            self._dedupe = True
+            self._f = open(path, "a")
+        else:
+            self._f = open(path, "w") if path else None
 
     def write(self, rec: dict) -> None:
         with self._lock:
+            if self._dedupe and rec.get("kind") != "resume":
+                key = (rec["kind"], rec["group"])
+                c = self._clock.get(key)
+                if c is not None and rec["chunk"] <= c:
+                    return           # already durable from the killed run
+                self._clock[key] = rec["chunk"]
             self.records.append(rec)
             if self._f is not None:
                 self._f.write(schema.jsonl_line(rec) + "\n")
@@ -106,6 +141,18 @@ class ChunkEmitter:
         self._worker = threading.Thread(target=self._work, daemon=True,
                                         name=f"stream-{kind}-{group}")
         self._worker.start()
+
+    def restore_clock(self, chunk_idx: int, prev: dict | None) -> None:
+        """Resume support: pin the differencing clock to a restored chunk
+        boundary.  ``prev`` is the probe of the restored carry, the probe
+        the killed run last consumed, so the first record after the seam
+        differences against the baseline an uninterrupted run would have
+        used.  Call it before the first `emit`."""
+        self._chunk_idx = int(chunk_idx)
+        self._prev = (None if prev is None else
+                      {k: (v.cpu().numpy().copy()
+                           if isinstance(v, torch.Tensor) else np.array(v))
+                       for k, v in prev.items()})
 
     def _buffers(self, leaves: Dict[str, torch.Tensor]) -> List[dict]:
         """Device snapshot and host buffers, allocated at the first emit."""
@@ -299,9 +346,11 @@ def atlas_record(group: int, bucket: int, n_requeues: int,
 
 
 def open_sink(stream: bool, stream_log=None,
-              stream_path: str | None = None) -> StreamSink | None:
+              stream_path: str | None = None,
+              append: bool = False) -> StreamSink | None:
     """The run's sink when any of the stream arguments asks for one
-    (``stream_log`` and ``stream_path`` each imply ``stream``)."""
+    (``stream_log`` and ``stream_path`` each imply ``stream``);
+    ``append`` opens it in the resumed-run mode."""
     if stream or stream_log is not None or stream_path is not None:
-        return StreamSink(path=stream_path, log=stream_log)
+        return StreamSink(path=stream_path, log=stream_log, append=append)
     return None

@@ -10,8 +10,8 @@ Public API:
   engine:     ServingJob, ServingResult, run_serving
   report:     serving_report, jsonl_line, write_stream_jsonl
 
-The reference's resilience options (checkpointed, resumable runs) are not
-ported yet.
+`run_serving(..., resilience=...)` runs are checkpointed and resumable
+(`repro_torch.runtime.resilience`).
 """
 from .trace import (QueryClass, TRACES, TraceSpec, TraceState, draw_arrivals,
                     get_trace, list_traces, register_trace)

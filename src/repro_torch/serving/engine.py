@@ -74,6 +74,12 @@ class ServingResult:
     device: str = ""
     n_step_compiles: int = 0      # graph captures on CUDA, launchers on the
                                   # CPU (cumulative per launcher)
+    resumed_from: int | None = None   # checkpoint step this run restored
+                                      # (`runtime.resilience`); None = fresh
+    degraded: Dict[int, str] = dataclasses.field(default_factory=dict)
+                                  # job index -> why it is flagged
+    recovery_plan: object | None = None   # runtime.fault.RecoveryPlan
+    n_fault_retries: int = 0      # injected launch failures retried
 
     def column(self, name: str) -> np.ndarray:
         return np.array([m[name] for m in self.metrics])
@@ -104,7 +110,8 @@ def run_serving(jobs: Sequence[ServingJob], T: int, chunk: int = 512,
                 admission: AdmissionConfig | None = None,
                 stream: bool = False,
                 stream_log: Callable[[dict], None] | None = None,
-                stream_path: str | None = None) -> ServingResult:
+                stream_path: str | None = None,
+                resilience=None) -> ServingResult:
     """Run every serving job on ``device`` (CUDA unless the caller asks for
     the CPU), one batch per (policy group, trace), with per-chunk stream
     records when ``stream`` is on.
@@ -112,9 +119,17 @@ def run_serving(jobs: Sequence[ServingJob], T: int, chunk: int = 512,
     ``stream_log``/``stream_path`` (each implies ``stream``) mirror
     `fleet.run_fleet`: records are assembled off the host loop on the
     emitter's worker thread, ``stream_log`` is called there, and
-    ``stream_path`` appends JSONL live.  The reference's ``resilience``
-    (with ``resumed_from``, ``degraded``, ``recovery_plan`` and
-    ``n_fault_retries`` on the result) is not ported yet."""
+    ``stream_path`` appends JSONL live.
+
+    ``resilience`` mirrors `fleet.run_fleet`: snapshots of the carry (the
+    admission state, the latency ring and histogram and the trace cursor
+    ride in it) at chunk boundaries, bit-exact resume into the launch's
+    tensors, retry with backoff on injected launch failures.  A host
+    dropout only flags the affected jobs (``ServingResult.degraded``) and
+    plans recovery, as in the reference: serving parks no lane."""
+    from repro_torch.runtime.resilience import (RunProgress,
+                                                maybe_resilient,
+                                                resume_group)
     dev = resolve_device(device)
     jobs = list(jobs)
     problem_of: Dict[tuple, ComputeProblem] = {}
@@ -129,9 +144,14 @@ def run_serving(jobs: Sequence[ServingJob], T: int, chunk: int = 512,
     for i, job in enumerate(jobs):
         groups.setdefault(_group_key(job), []).append(i)
 
-    metrics: List[Dict[str, float] | None] = [None] * len(jobs)
+    rt = maybe_resilient(resilience, "serving", jobs=tuple(jobs), T=T,
+                         chunk=chunk, window=window, verdict=verdict,
+                         admission=admission, dims=dims, ndev=1)
+    resumed = rt.resumed if rt is not None else None
+    prog = RunProgress.start(len(jobs), resumed)
     eff_T = eff_win = slot_steps = n_compiles = 0
-    sink = open_sink(stream, stream_log, stream_path)
+    sink = open_sink(stream, stream_log, stream_path,
+                     append=resumed is not None)
     try:
         for g, idxs in enumerate(groups.values()):
             group = [jobs[i] for i in idxs]
@@ -140,6 +160,8 @@ def run_serving(jobs: Sequence[ServingJob], T: int, chunk: int = 512,
                 chunk=chunk, window=window, verdict=verdict,
                 admission=admission)
             eff_T, eff_win = runner.T, runner.window
+            if resumed is not None and g < resumed["group"]:
+                continue          # finished before the kill: metrics restored
             pp = from_leaves([leaves_of[(j.scenario, j.topo_seed)]
                               for j in group], dims.n_nodes, dims.n_comp,
                              dev)
@@ -152,25 +174,49 @@ def run_serving(jobs: Sequence[ServingJob], T: int, chunk: int = 512,
             emitter = (ChunkEmitter("serving", g, len(group), runner, sink)
                        if sink is not None else None)
             try:
-                for _ in range(runner.n_chunks):
-                    launch.step()
+                launched = first = resume_group(rt, g, launch, runner,
+                                                emitter, sink, len(group),
+                                                "serving")
+                while launched < runner.n_chunks:
+                    if rt is not None:
+                        rt.launch(g, prog.glaunch, launch.step)
+                    else:
+                        launch.step()
+                    launched += 1
+                    prog.glaunch += 1
                     if emitter is not None:
                         emitter.emit(runner.probe(launch.carry))
+                    if rt is not None:
+                        prog.drop_hosts(rt.dead_hosts(prog.glaunch), idxs)
+                        if rt.should_snapshot(prog.glaunch):
+                            rt.snapshot(prog.glaunch, launch.carry,
+                                        prog.extra(g, launched))
+                        rt.maybe_preempt(prog.glaunch)
             finally:
                 if emitter is not None:
                     emitter.close()
-            slot_steps += runner.T
+            slot_steps += (launched - first) * runner.chunk
             n_compiles += launch.n_compiles
             rows = metric_rows(runner.finalize(launch.inp, launch.carry))
             for j, i in enumerate(idxs):
-                metrics[i] = rows[j]
+                prog.metrics[i] = rows[j]
+            if rt is not None:
+                rt.snapshot(prog.glaunch, (), prog.extra(g + 1, 0))
     finally:
         if sink is not None:
             sink.close()
-    return ServingResult(jobs=jobs, metrics=metrics, n_programs=len(groups),
-                         n_sims=len(jobs), dims=dims, T=eff_T,
-                         window=eff_win,
+        if rt is not None:
+            rt.wait()
+    return ServingResult(jobs=jobs, metrics=prog.metrics,
+                         n_programs=len(groups), n_sims=len(jobs), dims=dims,
+                         T=eff_T, window=eff_win,
                          stream_records=(sink.records if sink is not None
                                          else []),
                          slot_steps=slot_steps, device=str(dev),
-                         n_step_compiles=n_compiles)
+                         n_step_compiles=n_compiles,
+                         resumed_from=(resumed["ckpt_step"]
+                                       if resumed is not None else None),
+                         degraded=prog.degraded,
+                         recovery_plan=prog.recovery,
+                         n_fault_retries=(rt.n_retries if rt is not None
+                                          else 0))

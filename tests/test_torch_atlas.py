@@ -331,3 +331,44 @@ def test_graphed_chunk_equals_the_eager_chunk_on_the_card():
                 launch.rewrite(reset, ~reset, lam, seed)
     assert graphed.n_compiles == 1 and graphed.replays == 4 * 4 - 1
     assert eager.graph is None
+
+
+@pytest.mark.gpu
+def test_resume_into_the_captured_graph_on_the_card(tmp_path):
+    """On the card a same-process resume (`runtime.resilience`) writes the
+    checkpoint's carry into the tensors the killed run's captured graph
+    reads and replays it: the fleet and the atlas killed at a boundary
+    and resumed equal their uninterrupted runs bit for bit, and nothing
+    is captured anew."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.bp_slot.kernel import slot_step_fused
+    from repro_torch.runtime import FaultPlane, Preempted, ResilienceConfig
+
+    def kill_and_resume(run, kill_at, ckpt):
+        with pytest.raises(Preempted):
+            run(resilience=ResilienceConfig(
+                checkpoint_dir=str(ckpt),
+                fault_plane=FaultPlane.preempt_after(kill_at)))
+        return run(resilience=ResilienceConfig(checkpoint_dir=str(ckpt)))
+
+    jobs = [tfleet.FleetJob(f, "pi3_reg", lam=lam, seed=s, eps_b=0.05)
+            for f, lam in (("paper_grid", 4.0), ("ge_grid", 3.0))
+            for s in (0, 1)]
+    kw = dict(T=512, chunk=128, device="cuda")
+    base = tfleet.run_fleet(jobs, **kw)
+    captured = slot_step_fused.captured
+    res = kill_and_resume(lambda **o: tfleet.run_fleet(jobs, **kw, **o), 2,
+                          tmp_path / "fleet")
+    assert res.metrics == base.metrics and res.resumed_from == 2
+    assert slot_step_fused.captured == captured
+    cells = _cells(tfleet, MINI_FAMILIES)
+    akw = dict(EXACT_KW, device="cuda")
+    abase = tfleet.sweep_lambda_max(cells, **akw)
+    captured = slot_step_fused.captured
+    ares = kill_and_resume(
+        lambda **o: tfleet.sweep_lambda_max(cells, **akw, **o), 3,
+        tmp_path / "atlas")
+    assert ares.rows == abase.rows and ares.n_launches == abase.n_launches
+    assert ares.resumed_from == 3
+    assert slot_step_fused.captured == captured

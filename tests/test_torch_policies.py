@@ -177,3 +177,17 @@ def test_arrivals_and_model_state_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
         assert call(device="cpu").device.type == "cpu", name
+
+
+def test_init_cache_defaults_to_cuda(monkeypatch):
+    """`models.attention.init_cache`, called directly, resolves its device
+    as every other entry point does: CUDA unless asked, raising without a
+    card."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.attention import init_cache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("granite-moe-1b-a400m"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 2, 8, torch.float32)
+    cache = init_cache(cfg, 2, 8, torch.float32, device="cpu")
+    assert all(x.device.type == "cpu" for x in cache)
