@@ -135,7 +135,33 @@ on failure:
      through `ModelAPI.logits`: each layer's attention output, as the sm90
      kernel gave it inside the forward, within bf16 rounding of the plain
      version's float32 result on that layer's own q, k and v; finite
-     logits.
+     logits;
+ 14. training at full width (`phase_train`): granite-moe-1b-a400m, 24
+     layers, random float32 weights from a seed, 12 steps through the
+     launcher (`launch.train.main`, float32, B=8, S=512, remat full):
+     falling loss, bounded router queues, 48 launches of the CUDA-core
+     flash kernel and of bp_topk_route per step and no sm90 one, every
+     parameter leaf a finite, non-zero gradient after step 1; ms per
+     step, tokens/s, peak memory, one profiled step; then 3 steps of
+     `make_train_step` in bfloat16 (B=4, remat none): 24 sm90 flash and
+     24 gate launches per step;
+ 15. the autograd Functions on the card (`phase_train_grads`):
+     `FlashAttentionFn` (float32: dq, dk, dv within 1e-4 of autograd of
+     the plain version; bfloat16: within bf16 rounding of its float32
+     gradient) and `BpTopkRouteFn` (d/dlogits within 1e-6) on layer 1's
+     q, k, v and router logits of the training batch; their forward and
+     backward device ms beside SDPA's;
+ 16. one `make_train_step` step on the card against the CPU at full width
+     and 4 layers (B=2, S=256, float32; `phase_train_reference`): picks
+     per layer (a near-tie the devices' inputs explain teacher-forces
+     its layer), the loss within 1e-5, every leaf's moments and update
+     within 1e-4, equal router queues;
+ 17. kill and resume (`phase_train_resume`): full width, 2 layers,
+     through the launcher, a background save at step 4 and a crash at
+     step 6, resumed to step 8 beside an uninterrupted run: the restored
+     state bit-identical to the saved one, the first resumed loss
+     bit-identical, the later ones within 1e-4; checkpoint bytes and the
+     ms of save and restore.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is
@@ -216,6 +242,18 @@ FLASH_RANDOM_WINDOWS = 12
 #: order.
 FLASH_BF16_ROUNDING = (1e-5, 2.0 ** -8)
 PREFILL_REF_B, PREFILL_REF_S = 2, 256   # the prefill's card-vs-CPU check
+#: Training (phases 14-17): granite at full width through the launcher,
+#: train_4k's batch of 256 x 4,096 cut to 8 x 512 (and its bf16 run to
+#: 4 x 512); the card-vs-CPU step at 4 layers, the resume at 2.
+TRAIN_ARCH = SERVE_ARCH
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_PROFILE_STEP = 8, 512, 12, 10
+TRAIN_BF16_B, TRAIN_BF16_STEPS = 4, 3
+TRAIN_REF_LAYERS, TRAIN_REF_B, TRAIN_REF_S = 4, 2, 256
+RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 2, 8, 4, 5
+TRAIN_LOSS_RTOL = 1e-5          # a step's loss, card vs CPU
+TRAIN_GRAD_RTOL = 1e-4          # gradients and updates, Frobenius, relative
+GATE_GRAD_ATOL = 1e-6           # the gate's d/dlogits against autograd
+TRAIN_RESUME_RTOL = 1e-4        # resumed losses after the first
 #: Slack on a near-tie's margin beyond the devices' measured difference:
 #: well above float32 rounding of a gate score in [-1, 1] (6e-8), far below
 #: the typical gap between neighbouring scores (~1e-3).
@@ -2932,6 +2970,10 @@ def phase_flash(dev, peaks):
     # it is logged beside the bound, which alone goes into the table.
     row["bound_ms"], row["bound_by"] = bound_of(nbytes, nops, peaks,
                                                 "bfloat16")
+    # The CUDA-core kernel's float32 bound: the same operations at the
+    # card's float32 rate (twice the bytes), what rule 2 ranks it by.
+    row["simt_f32_bound_ms"], simt_by = bound_of(2 * nbytes, nops, peaks,
+                                                 "float32")
     split_p_floor_ms = 1.5 * nops / peaks["bfloat16"] * 1e3
     log(f"kernel flash_attention (sm90) at B={B}, H={H}, KH={KH}, S={S}, "
         f"D={D}, bf16, causal: {ms:.4f} ms on the card ({nops / ms / 1e9:.2f}"
@@ -2939,7 +2981,9 @@ def phase_flash(dev, peaks):
         f"({nops} flops at the bf16 tensor-core rate, {nbytes} B), the "
         f"design's split-P floor {split_p_floor_ms:.4f} ms; SDPA (library, "
         f"is_causal, enable_gqa) {lib_ms:.4f} ms; the CUDA-core kernel in "
-        f"float32 at the same shape {simt_ms:.4f} ms (simt_f32_ms), SDPA "
+        f"float32 at the same shape {simt_ms:.4f} ms (simt_f32_ms; its "
+        f"float32 bound {row['simt_f32_bound_ms']:.4f} ms by {simt_by}, "
+        f"simt_f32_bound_ms), SDPA "
         f"in float32 there (memory-efficient backend, kv heads repeated "
         f"before the call) {lib32_ms:.4f} ms (library_f32_ms); "
         f"{len(windows)} row windows ({sum(n for _, n in windows)} rows, "
@@ -3351,6 +3395,650 @@ def phase_prefill_bf16_layers(dev):
         f"logits finite, max |logit| {float(logits.abs().max()):.3f}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-17: training
+# ---------------------------------------------------------------------------
+
+def tree_paths(tree, prefix: str = "") -> dict:
+    """The leaves of a value tree (nested dicts) by "/"-joined key path."""
+    if tree is None:
+        return {}
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(tree_paths(tree[k], f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def rel_frobenius(a, b) -> float:
+    """||a - b|| / ||b|| in float64 (||a - b|| when b is 0)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    nb = float(b.norm())
+    return float((a - b).norm()) / (nb if nb else 1.0)
+
+
+def model_counts():
+    """(CUDA-core flash, sm90 flash, bp_topk_route) launch counters."""
+    from repro_torch.kernels.bp_topk import kernel as TK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    return (FK.flash_attention.launches, FK.flash_attention.launches_sm90,
+            TK.bp_topk_route.launches)
+
+
+#: Kernel-name fragments by which a training step's device time is
+#: grouped (first match wins; the rest is "other").
+STEP_GROUPS = (("gemm", ("gemm", "Kernel2<cutlass")),
+               ("flash", ("flash_attention",)),
+               ("gate", ("bp_topk_route",)),
+               ("index", ("index", "gather", "scatter")),
+               ("reduce", ("reduce", "softmax", "logsumexp")),
+               ("elementwise", ("elementwise", "vectorized")))
+
+
+def profile_summary(prof, wall_ms: float, top_n: int = 5) -> str:
+    """Activities, device ms, busy share of ``wall_ms`` (an unprofiled
+    step's), device ms by STEP_GROUPS and the ``top_n`` kernels by device
+    time of a profiler trace."""
+    import torch
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return "device-busy share not measured (no device activity traced)"
+    dev_ms = sum(e.device_time for e in evs) / 1e3
+    kinds, groups = {}, {}
+    for e in evs:
+        kinds[e.name] = kinds.get(e.name, 0) + e.device_time / 1e3
+        g = next((g for g, keys in STEP_GROUPS
+                  if any(k in e.name for k in keys)), "other")
+        groups[g] = groups.get(g, 0) + e.device_time / 1e3
+    top = sorted(kinds.items(), key=lambda kv: -kv[1])[:top_n]
+    return (f"{len(evs)} CUDA device activities, {dev_ms:.4f} ms of device "
+            f"time, busy {dev_ms / wall_ms:.4f} of an unprofiled step's "
+            f"{wall_ms:.4f} ms; by group: " +
+            ", ".join(f"{g} {t:.4f} ms ({t / dev_ms:.4f})" for g, t in
+                      sorted(groups.items(), key=lambda kv: -kv[1])) +
+            "; top kernels: " +
+            "; ".join(f"{n[:60]} {t:.4f} ms ({t / dev_ms:.4f})"
+                      for n, t in top))
+
+
+class StepRecorder:
+    """Wraps a `make_train_step` (``record(make_train_step)``) so that each
+    step is timed on the host clock around a synchronised step, its flash
+    and gate launches counted and its loss kept.  After the first step
+    every leaf's first AdamW moment is read: m = (1 - b1) * clip * g after
+    one step from zero, so a finite, non-zero m is a finite, non-zero
+    gradient.  The step numbered ``profile_at`` (from 0) runs under the
+    profiler; its time is kept apart."""
+
+    def __init__(self, profile_at=None):
+        self.ms, self.losses, self.launches = [], [], []
+        self.m_after_1, self.H, self.prof = None, None, None
+        self.profile_at, self.profiled_ms = profile_at, None
+
+    def record(self, original):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def make_train_step(rcfg, optimizer=None):
+            step = original(rcfg, optimizer)
+
+            def recorded(state, batch):
+                n = len(self.losses)
+                torch.cuda.synchronize()
+                before = model_counts()
+                t0 = time.perf_counter()
+                if n == self.profile_at:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as p:
+                        new, m = step(state, batch)
+                        torch.cuda.synchronize()
+                    self.prof = p
+                    self.profiled_ms = (time.perf_counter() - t0) * 1e3
+                else:
+                    new, m = step(state, batch)
+                    torch.cuda.synchronize()
+                    self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.launches.append(tuple(
+                    a - b for a, b in zip(model_counts(), before)))
+                self.losses.append(float(m["loss"]))
+                if n == 0:
+                    self.m_after_1 = {
+                        k: (bool(torch.isfinite(v).all()),
+                            float(v.abs().max()), float(v.norm()),
+                            v.numel())
+                        for k, v in tree_paths(new.opt.m).items()}
+                if new.router_H is not None:
+                    self.H = new.router_H.clone()
+                return new, m
+            return recorded
+        return make_train_step
+
+
+def phase_train(dev):
+    """granite-moe-1b-a400m at full width (24 layers, random float32
+    weights from a seed) trained TRAIN_STEPS steps through the launcher
+    (`launch.train.main`: float32 activations, B=TRAIN_B, S=TRAIN_S, remat
+    full): finite losses, the mean of the last 4 below the mean of the
+    first 4; the router queues finite, >= 0 and below steps x B x S x top_k
+    (`tests/test_system.py:72`); every step 2 x 24 launches of the
+    CUDA-core flash kernel and of bp_topk_route (full remat runs each
+    block's forward again in the backward) and none of the sm90 kernel;
+    after step 1 every parameter leaf's gradient finite and non-zero (read
+    from its first moment).  Prints ms per step, tokens/s, peak memory and
+    one profiled step.  Then `make_train_step` with RunConfig's default
+    bfloat16 activations, remat none, B=TRAIN_BF16_B, TRAIN_BF16_STEPS
+    steps: 24 launches of the sm90 kernel and of the gate per step, none
+    of the CUDA-core kernel, finite losses.  Returns each kernel's
+    launches in both runs."""
+    import torch
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import train as T
+    from repro_torch.runtime.step import init_train_state, make_train_step
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    rec = StepRecorder(profile_at=TRAIN_PROFILE_STEP)
+    original = T.make_train_step
+    T.make_train_step = rec.record(original)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        losses = T.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                         "--remat", "full", "--log-every", "1"])
+    finally:
+        T.make_train_step = original
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(losses == rec.losses and len(losses) == TRAIN_STEPS and
+          all(math.isfinite(x) for x in losses),
+          f"training losses not finite: {losses}")
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    check(last < first, f"the loss did not fall: mean of the first 4 steps "
+          f"{first:.5f}, of the last 4 {last:.5f}")
+    H = rec.H
+    bound = TRAIN_STEPS * TRAIN_B * TRAIN_S * cfg.top_k
+    check(bool(torch.isfinite(H).all()) and bool((H >= 0).all()) and
+          float(H.max()) < bound,
+          f"router queues: max {float(H.max())} (bound {bound}), min "
+          f"{float(H.min())}")
+    want = (2 * L, 0, 2 * L)
+    check(all(n == want for n in rec.launches),
+          f"launches per step (CUDA-core flash, sm90 flash, bp_topk_route) "
+          f"{rec.launches}, expected {want} each")
+    bad = sorted(k for k, v in rec.m_after_1.items()
+                 if not (v[0] and v[1] > 0))
+    check(not bad, f"after step 1 these leaves have a zero or non-finite "
+          f"gradient: {bad}")
+    named = {k: v for k, v in rec.m_after_1.items()
+             if k.rsplit("/", 1)[-1] in ("wq", "wk", "wv", "router")}
+    check(len(named) == 4, f"leaves named: {sorted(named)}")
+    ms = statistics.median(rec.ms[1:])
+    log(f"train: {cfg.name} full width ({L} layers), float32, B={TRAIN_B}, "
+        f"S={TRAIN_S}, remat full, {TRAIN_STEPS} steps through "
+        f"launch.train.main ({time.perf_counter() - t0:.1f} s): losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)} (first 4 mean "
+        f"{first:.5f}, last 4 {last:.5f}); {ms:.4f} ms per step (median of "
+        f"the unprofiled steps 2-{TRAIN_STEPS}; step 1 {rec.ms[0]:.1f} ms; "
+        f"all {', '.join(f'{x:.1f}' for x in rec.ms)}), "
+        f"{TRAIN_B * TRAIN_S / ms * 1e3:.2f} tokens/s; peak device memory "
+        f"{peak:.2f} GiB; launches per step {want} (CUDA-core flash, sm90 "
+        f"flash, bp_topk_route); router queues max {float(H.max()):.1f} "
+        f"(bound {bound}), sum {float(H.sum()):.1f}")
+    log(f"train: after step 1 all {len(rec.m_after_1)} parameter leaves "
+        f"have a finite, non-zero gradient; clip x |g| = |m| / (1 - b1) "
+        f"for " + "; ".join(f"{k}: max {v[1] / 0.1:.3e}, norm "
+                            f"{v[2] / 0.1:.3e}" for k, v in
+                            sorted(named.items())))
+    log(f"train: profiled step {TRAIN_PROFILE_STEP + 1} "
+        f"({rec.profiled_ms:.1f} ms under the profiler): "
+        f"{profile_summary(rec.prof, ms)}")
+    launches = {"flash_attention": TRAIN_STEPS * 2 * L,
+                "bp_topk_route": TRAIN_STEPS * 2 * L}
+    del rec
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    rcfg = RunConfig(cfg, ShapeConfig("train", TRAIN_S, TRAIN_BF16_B,
+                                      "train"), remat="none")
+    check(rcfg.activ_dtype == "bfloat16", "RunConfig's default activations")
+    state, _ = init_train_state(
+        rcfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    rec16 = StepRecorder()
+    step = rec16.record(make_train_step)(rcfg)
+    data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_BF16_B, seed=1))
+    for i in range(TRAIN_BF16_STEPS):
+        state, _ = step(state, data.batch(i))
+    check(all(math.isfinite(x) for x in rec16.losses),
+          f"bf16 training losses not finite: {rec16.losses}")
+    check(all(n == (0, L, L) for n in rec16.launches),
+          f"bf16 launches per step {rec16.launches}, expected {(0, L, L)}")
+    log(f"train, bf16: make_train_step, RunConfig's default bfloat16 "
+        f"activations, remat none, B={TRAIN_BF16_B}, S={TRAIN_S}, "
+        f"{TRAIN_BF16_STEPS} steps ({time.perf_counter() - t1:.1f} s): "
+        f"losses {', '.join(f'{x:.5f}' for x in rec16.losses)}; ms per step "
+        f"{', '.join(f'{x:.1f}' for x in rec16.ms)}; launches per step "
+        f"{rec16.launches[0]} (CUDA-core flash, sm90 flash, bp_topk_route)")
+    del state, step
+    torch.cuda.empty_cache()
+    launches["flash_attention_sm90"] = TRAIN_BF16_STEPS * L
+    launches["bp_topk_route"] += TRAIN_BF16_STEPS * L
+    return launches
+
+
+def fwd_bwd_ms(fn, inputs, grad, kernel: str):
+    """(forward ms, backward ms) on the card of ``fn`` on ``inputs``: the
+    forward is the one launch of ``kernel`` (`device_ms` with a match,
+    which tolerates a record the profiler drops), the backward all the
+    device activities of `torch.autograd.grad` of one retained forward
+    with ``grad``, per call."""
+    import torch
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    with torch.no_grad():
+        fwd = device_ms(lambda: fn(*inputs), match=kernel, n=5, warm=2)
+    out = fn(*leaves)
+    out = out[1] if isinstance(out, tuple) else out
+    bwd = device_ms(lambda: torch.autograd.grad(out, leaves, grad,
+                                                retain_graph=True),
+                    n=10, warm=2)
+    return fwd, bwd
+
+
+def fwd_and_bwd_ms(fn, inputs, grad):
+    """Device ms per call of ``fn``'s forward and backward together (all
+    their activities)."""
+    import torch
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    return device_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, grad),
+                     n=10, warm=2)
+
+
+def phase_train_grads(dev):
+    """Each autograd Function of the training path on the card against
+    autograd of its plain version on the card, on the q, k, v and router
+    logits that layer 1 of granite at full width projects from the
+    training batch (B=TRAIN_B, S=TRAIN_S, float32 weights from a seed):
+    `FlashAttentionFn` in float32 (the CUDA-core kernel forward) with dq,
+    dk, dv within TRAIN_GRAD_RTOL (Frobenius, relative); in bfloat16 (the
+    sm90 kernel forward) within bf16 rounding, FLASH_BF16_ROUNDING, of the
+    plain version's float32 gradient on the same values (the Function
+    widens to float32 and rounds each gradient once); `BpTopkRouteFn`
+    (bp_topk_route forward) with the same picks and weights bit for bit
+    and d/dlogits within GATE_GRAD_ATOL.  Device ms of each forward and
+    backward, beside SDPA's forward+backward at the same shapes, are
+    printed as information."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.kernels.bp_topk.ops import bp_topk_route_fn
+    from repro_torch.kernels.bp_topk.ref import bp_topk_route_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fn
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.attention import _project_qkv, attention
+    from repro_torch.models.common import embed, norm
+    from repro_torch.models.transformer import layer
+    t0 = time.perf_counter()
+    cfg, params = serve_model(dev, n_layers=1, seed=3)
+    toks = torch.as_tensor(TokenStream(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B)).batch(
+        0)["tokens"][:, :-1], device=dev)
+    p0 = layer(params["stack"]["layers"], 0)
+    with torch.no_grad():
+        x = embed(cfg, params["embed"], toks, torch.float32)
+        pos = torch.arange(TRAIN_S, device=dev)[None].expand(TRAIN_B, -1)
+        h = norm(cfg, x, p0.get("ln1"))
+        q, k, v = (t.contiguous().transpose(1, 2)
+                   for t in _project_qkv(cfg, p0["attn"], h, pos))
+        x = x + attention(cfg, p0["attn"], h, pos)
+        logits = (norm(cfg, x, p0.get("ln2")).reshape(-1, cfg.d_model)
+                  @ p0["moe"]["router"]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g = torch.randn(q.shape, generator=gen, device=dev)
+
+    def grads(fn, inputs, grad):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, grad)
+
+    def fn(*a):
+        return flash_attention_fn(*a, causal=True)
+
+    def ref(*a):
+        return flash_attention_ref(*a, causal=True)
+
+    before = model_counts()
+    out, d_fn = grads(fn, (q, k, v), g)
+    check(model_counts()[:2] == (before[0] + 1, before[1]),
+          "the float32 Function did not launch the CUDA-core kernel once")
+    out_ref, d_ref = grads(ref, (q, k, v), g)
+    f32_err = [rel_frobenius(a, b) for a, b in zip(d_fn, d_ref)]
+    check(max(f32_err) <= TRAIN_GRAD_RTOL and
+          within(out, out_ref, FLASH_TOL["float32"], FLASH_TOL["float32"]),
+          f"FlashAttentionFn float32: dq, dk, dv off the plain version's by "
+          f"{f32_err} (Frobenius, relative; gate {TRAIN_GRAD_RTOL}), forward "
+          f"by {max_abs_err([(out, out_ref)]):.3e}")
+    qb, kb, vb, gb = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    before = model_counts()
+    out_b, d_b = grads(fn, (qb, kb, vb), gb)
+    check(model_counts()[:2] == (before[0], before[1] + 1),
+          "the bf16 Function did not launch the sm90 kernel once")
+    _, d_32 = grads(ref, (qb.float(), kb.float(), vb.float()), gb.float())
+    atol, rtol = FLASH_BF16_ROUNDING
+    bf16_err = [max_abs_err([(a, b)]) for a, b in zip(d_b, d_32)]
+    check(all(a.dtype == torch.bfloat16 and within(a, b, atol, rtol)
+              for a, b in zip(d_b, d_32)),
+          f"FlashAttentionFn bf16: gradients off the float32 plain gradient "
+          f"by {bf16_err}, more than bf16 rounding ({atol} + {rtol} |ref|)")
+    rounded = all(torch.equal(a, b.to(torch.bfloat16))
+                  for a, b in zip(d_b, d_32))
+
+    E, kk, T = cfg.n_experts, cfg.top_k, logits.shape[0]
+    H = torch.arange(E, dtype=torch.float32, device=dev) * (T * kk / E / E)
+    steps = torch.zeros((), dtype=torch.int32, device=dev)
+    gw = torch.randn((T, kk), generator=gen, device=dev)
+
+    def gate(lg):
+        return bp_topk_route_fn(lg, H, steps, T * kk / E, kk, True)
+
+    def gate_ref(lg):
+        return bp_topk_route_ref(lg, H, steps, T * kk / E, kk, True)
+
+    before = model_counts()[2]
+    lk = logits.detach().requires_grad_()
+    idx_k, w_k = gate(lk)[:2]
+    (d_k,) = torch.autograd.grad(w_k, lk, gw)
+    check(model_counts()[2] == before + 1,
+          "BpTopkRouteFn did not launch bp_topk_route once")
+    lr_ = logits.detach().requires_grad_()
+    idx_r, w_r = gate_ref(lr_)[:2]
+    (d_r,) = torch.autograd.grad(w_r, lr_, gw)
+    gate_err = max_abs_err([(d_k, d_r)])
+    check(torch.equal(idx_k, idx_r) and bits_equal(w_k, w_r) and
+          gate_err <= GATE_GRAD_ATOL,
+          f"BpTopkRouteFn: picks equal {torch.equal(idx_k, idx_r)}, weights "
+          f"bit-equal {bits_equal(w_k, w_r)}, d/dlogits off autograd of the "
+          f"plain version by {gate_err:.3e} (gate {GATE_GRAD_ATOL})")
+    log(f"train grads: layer 1 of {cfg.name} at full width, B={TRAIN_B}, "
+        f"S={TRAIN_S} ({time.perf_counter() - t0:.1f} s so far). "
+        f"FlashAttentionFn float32 (CUDA-core forward): dq, dk, dv within "
+        f"{', '.join(f'{e:.3e}' for e in f32_err)} of autograd of the plain "
+        f"version (Frobenius, relative; gate {TRAIN_GRAD_RTOL}); bfloat16 "
+        f"(sm90 forward): within {', '.join(f'{e:.3e}' for e in bf16_err)} "
+        f"(max abs) of the float32 plain gradient, inside bf16 rounding "
+        f"({atol} + {rtol} |ref|), "
+        f"{'equal to it rounded to bf16 bit for bit' if rounded else 'not bit-equal to it rounded'}; "
+        f"BpTopkRouteFn at T={T}, E={E}, k={kk}: picks and weights "
+        f"bit-identical, d/dlogits within {gate_err:.3e} (gate "
+        f"{GATE_GRAD_ATOL}), max |d/dlogits| {float(d_r.abs().max()):.3e}")
+
+    times = {
+        "FlashAttentionFn f32": fwd_bwd_ms(fn, (q, k, v), g,
+                                           "flash_attention_kernel<"),
+        "FlashAttentionFn bf16": fwd_bwd_ms(fn, (qb, kb, vb), gb,
+                                            "flash_attention_sm90_kernel<"),
+        "BpTopkRouteFn": fwd_bwd_ms(gate, (logits,), gw, "bp_topk_route_")}
+    sdpa = {"bf16": fwd_and_bwd_ms(
+        lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True, enable_gqa=True), (qb, kb, vb), gb)}
+    k4, v4 = (t.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=1)
+              for t in (k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        sdpa["f32 (memory-efficient, kv heads repeated)"] = fwd_and_bwd_ms(
+            lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True), (q, k4, v4), g)
+    log(f"train grads, device ms at these shapes (information): " +
+        "; ".join(f"{k_} forward {a:.4f}, backward {b:.4f}"
+                  for k_, (a, b) in times.items()) +
+        "; SDPA forward+backward " + "; ".join(
+            f"{k_} {t:.4f}" for k_, t in sdpa.items()) +
+        f" ({time.perf_counter() - t0:.1f} s in all)")
+
+
+def forced_route(cfg, p, x_flat, rs, idx):
+    """`moe._route`'s output with the picks ``idx`` given (teacher
+    forcing): the weights, counts and queues those picks imply, in plain
+    torch, differentiable in the weights."""
+    import torch
+    from repro_torch.core.router import RouterState, expert_counts
+    G, Tg, _ = x_flat.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = torch.einsum("gtd,de->gte", x_flat,
+                          p["router"].to(x_flat.dtype))
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    w = torch.gather(probs, -1, idx)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    counts = expert_counts(idx, E)
+    cap = torch.full((), G * Tg * k / E, dtype=torch.float32,
+                     device=x_flat.device)
+    H_new = torch.clamp(rs.H + counts - cap, min=0.0)
+    return (idx, w.to(x_flat.dtype), RouterState(H=H_new,
+                                                 steps=rs.steps + 1),
+            torch.zeros((), dtype=torch.float32, device=x_flat.device),
+            counts)
+
+
+def phase_train_reference(dev):
+    """One `make_train_step` step on the card against the port's CPU path,
+    at full width and TRAIN_REF_LAYERS layers, B=TRAIN_REF_B,
+    S=TRAIN_REF_S, float32, remat none, from the same state and tokens.
+    The picks of every layer are compared as `phase_prefill_reference`
+    compares them: a differing pick must be a near-tie the two devices'
+    router inputs explain (`compare_routes`); it is counted and printed,
+    and that layer is teacher-forced to the CPU's picks on the card (the
+    step runs again from the same state).  Then: the loss within
+    TRAIN_LOSS_RTOL (relative), every leaf's first moment (the clipped
+    gradient times 1 - b1), second moment and updated value within
+    TRAIN_GRAD_RTOL (Frobenius, relative), the new router queues equal."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint.checkpointer import flatten, unflatten
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.models import moe
+    from repro_torch.runtime.step import init_train_state, make_train_step
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_REF_LAYERS)
+    rcfg = RunConfig(cfg, ShapeConfig("train", TRAIN_REF_S, TRAIN_REF_B,
+                                      "train"), activ_dtype="float32",
+                     remat="none")
+    state0, _ = init_train_state(
+        rcfg, torch.Generator(device=dev).manual_seed(7), device=dev)
+
+    def copy_of(d):
+        return unflatten(state0, [t.to(d, copy=True)
+                                  for t in flatten(state0)[0]])
+
+    toks = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_REF_S,
+                                  global_batch=TRAIN_REF_B, seed=7)).batch(0)
+    step = make_train_step(rcfg)
+    routed, forced = [], {}
+    original = moe._route
+
+    def route(cfg_, p, x_flat, rs, *, use_kernel=False):
+        i = len(routed)
+        out = original(cfg_, p, x_flat, rs, use_kernel=use_kernel)
+        routed.append((out[0], x_flat.detach(), p["router"].detach(), rs.H))
+        if i in forced:
+            return forced_route(cfg_, p, x_flat, rs,
+                                forced[i].to(x_flat.device))
+        return out
+
+    def run(d):
+        routed.clear()
+        new, m = step(copy_of(d), toks)
+        return new, float(m["loss"]), list(routed)
+
+    cpu = torch.device("cpu")
+    moe._route = route
+    try:
+        new_c, loss_c, rec_c = run(cpu)
+        near = []
+        for _ in range(cfg.n_layers + 1):
+            new_d, loss_d, rec_d = run(dev)
+            check(len(rec_d) == len(rec_c) == cfg.n_layers,
+                  f"{len(rec_d)}/{len(rec_c)} routing calls")
+            flips = {}
+            for i, (a, b) in enumerate(zip(rec_d, rec_c)):
+                if i in forced:
+                    continue
+                rows, margins, delta, ok = compare_routes(a, b, cfg)
+                check(ok, f"train reference, layer {i}: {len(rows)} tokens "
+                      f"pick other experts on the card, margins "
+                      f"{margins.tolist()} against 2 x {delta:.3e}")
+                if len(rows):
+                    flips[i] = rec_c[i][0]
+                    near += [(i, int(r), float(mg), delta)
+                             for r, mg in zip(rows, margins)]
+            if not flips:
+                break
+            forced.update(flips)          # teacher-force and step again
+    finally:
+        moe._route = original
+    check(abs(loss_d - loss_c) <= TRAIN_LOSS_RTOL * abs(loss_c),
+          f"train reference: loss {loss_d!r} on the card, {loss_c!r} on the "
+          f"CPU (gate {TRAIN_LOSS_RTOL} relative)")
+    errs = {}
+    for what, a, b in (("m", new_d.opt.m, new_c.opt.m),
+                       ("v", new_d.opt.v, new_c.opt.v),
+                       ("params", new_d.params, new_c.params)):
+        for name, t in tree_paths(a).items():
+            errs[f"{what}:{name}"] = rel_frobenius(t, tree_paths(b)[name])
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    check(worst[1] <= TRAIN_GRAD_RTOL,
+          f"train reference: {worst[0]} differs by {worst[1]:.3e} "
+          f"(Frobenius, relative; gate {TRAIN_GRAD_RTOL})")
+    check(torch.equal(new_d.router_H.cpu(), new_c.router_H) and
+          int(new_d.step) == int(new_c.step) == 1,
+          "train reference: router queues or step differ")
+    log(f"train reference: {cfg.name} full width at {cfg.n_layers} layers, "
+        f"B={TRAIN_REF_B}, S={TRAIN_REF_S}, float32, one make_train_step "
+        f"step card vs CPU ({time.perf_counter() - t0:.1f} s): loss "
+        f"{loss_d!r} / {loss_c!r} (relative {abs(loss_d - loss_c) / abs(loss_c):.3e}, "
+        f"gate {TRAIN_LOSS_RTOL}); worst leaf {worst[0]} {worst[1]:.3e} "
+        f"(gate {TRAIN_GRAD_RTOL}); m (gradients) worst "
+        f"{max(v for k_, v in errs.items() if k_.startswith('m:')):.3e}; "
+        f"router queues equal; {len(near)} near-tie picks (layer, token, "
+        f"margin, delta) {near[:8]}, layers teacher-forced "
+        f"{sorted(forced)}")
+
+
+def phase_train_resume(dev):
+    """Preemption-safe training at full width and RESUME_LAYERS layers
+    through the launcher (float32, B=TRAIN_B, S=TRAIN_S): an uninterrupted
+    run of RESUME_STEPS steps, then a run that saves every RESUME_EVERY
+    steps (in the background) and crashes at step RESUME_CRASH, then
+    ``--resume`` to RESUME_STEPS.  The restored TrainState equals the saved
+    one bit for bit (the sha256 of every restored leaf, read back from the
+    card, against the checkpoint's manifest); the first resumed loss equals
+    the uninterrupted run's and the crashed run's at that step bit for bit,
+    the later ones the uninterrupted run's within TRAIN_RESUME_RTOL.
+    Prints the checkpoint's bytes and the ms of its save and restore."""
+    import dataclasses
+    import json as _json
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpointer as C
+    from repro_torch.launch import train as T
+    t0 = time.perf_counter()
+    base = T.get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(base, n_layers=RESUME_LAYERS)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="train_resume_"))
+    made = []
+
+    class Recording(C.Checkpointer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+            self.restored = None
+
+        def restore(self, like, step=None, fallback=False, into=None):
+            t1 = time.perf_counter()
+            out = super().restore(like, step=step, fallback=fallback,
+                                  into=into)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            s = self.latest_step() if step is None else step
+            manifest = _json.loads((self.dir / f"step_{s:08d}" /
+                                    "manifest.json").read_text())
+            digests = [C._sha256(C._to_host(x)[0])
+                       for x in C.flatten(out)[0]]
+            self.restored = (s, ms, digests == manifest["sha256"],
+                             len(digests))
+            return out
+
+    common = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq",
+              str(TRAIN_S), "--steps", str(RESUME_STEPS), "--log-every",
+              "100"]
+    ck = ["--ckpt-dir", str(tmp), "--ckpt-every", str(RESUME_EVERY)]
+    recs = [StepRecorder() for _ in range(3)]
+    originals = (T.get_config, T.make_train_step, T.Checkpointer)
+    T.get_config = lambda arch: cfg if arch == TRAIN_ARCH else \
+        originals[0](arch)
+    T.Checkpointer = Recording
+    try:
+        T.make_train_step = recs[0].record(originals[1])
+        full = T.main(common)
+        T.make_train_step = recs[1].record(originals[1])
+        crash = None
+        try:
+            T.main(common + ck + ["--crash-at", str(RESUME_CRASH)])
+        except SystemExit as e:
+            crash = str(e)
+        check(crash == f"simulated crash at step {RESUME_CRASH}",
+              f"the crashing run ended with {crash!r}")
+        saved = made[-1]
+        save_ms = dict(saved.last_ms)
+        saved_step = saved.latest_step()
+        nbytes = sum(f.stat().st_size for f in
+                     (tmp / f"step_{saved_step:08d}").iterdir())
+        T.make_train_step = recs[2].record(originals[1])
+        resumed = T.main(common + ck + ["--resume"])
+    finally:
+        T.get_config, T.make_train_step, T.Checkpointer = originals
+        shutil.rmtree(tmp, ignore_errors=True)
+    restored = made[-1].restored
+    check(saved_step == RESUME_EVERY and restored is not None and
+          restored[0] == RESUME_EVERY and restored[2],
+          f"saved step {saved_step}, restore {restored}: the restored state "
+          f"must equal the saved one bit for bit")
+    n_res = RESUME_STEPS - RESUME_EVERY
+    first = RESUME_EVERY
+    check(len(full) == RESUME_STEPS and len(resumed) == n_res and
+          len(recs[1].losses) == RESUME_CRASH + 1,
+          f"losses: {len(full)} uninterrupted, {len(recs[1].losses)} before "
+          f"the crash, {len(resumed)} resumed")
+    check(resumed[0] == full[first] == recs[1].losses[first],
+          f"the first resumed loss {resumed[0]!r} against the uninterrupted "
+          f"run's {full[first]!r} and the crashed run's "
+          f"{recs[1].losses[first]!r} at step {first + 1}: not bit-identical")
+    later = [abs(a - b) / abs(b) for a, b in zip(resumed[1:],
+                                                  full[first + 1:])]
+    check(max(later) <= TRAIN_RESUME_RTOL,
+          f"resumed losses {resumed[1:]} against {full[first + 1:]}: "
+          f"relative {later} (gate {TRAIN_RESUME_RTOL})")
+    n_params = sum(v[3] for v in recs[0].m_after_1.values())
+    log(f"train resume: {cfg.name} full width at {cfg.n_layers} layers "
+        f"({n_params / 1e6:.2f}M params), B={TRAIN_B}, S={TRAIN_S}, float32 "
+        f"({time.perf_counter() - t0:.1f} s): crashed at step "
+        f"{RESUME_CRASH + 1} after a background save at step {saved_step}; "
+        f"the checkpoint {nbytes} B, saved in copy {save_ms.get('copy', 0):.1f}"
+        f" + sha256 {save_ms.get('sha256', 0):.1f} + write "
+        f"{save_ms.get('write', 0):.1f} ms, restored in place in "
+        f"{restored[1]:.1f} ms, its {restored[3]} leaves bit-identical to "
+        f"the saved ones (sha256); first resumed loss {resumed[0]!r} equal "
+        f"bit for bit to the uninterrupted and the crashed run's; later "
+        f"losses within {', '.join(f'{x:.3e}' for x in later)} (gate "
+        f"{TRAIN_RESUME_RTOL}; bit-identical: "
+        f"{resumed[1:] == full[first + 1:]}); uninterrupted losses "
+        f"{', '.join(f'{x:.5f}' for x in full)}")
+
+
 def to_device_tree(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device_tree(v, dev) for k, v in tree.items()}
@@ -3428,12 +4116,33 @@ def main() -> int:
         f"{resilience_launches} more (phase_resilience)")
     phase_router(dev)
     launches["bp_topk_route"] = phase_serve(dev)
-    rows["bp_topk_route"]["path"] = ("Engine decode steps (phase_serve); "
-                                     "24 more per prefill (phase_prefill)")
     phase_serve_reference(dev)
     launches["flash_attention"] = phase_prefill(dev)["flash_attention_sm90"]
     phase_prefill_reference(dev)
     phase_prefill_bf16_layers(dev)
+    t_train, phase_s = time.perf_counter(), {}
+    train_launches = phase_train(dev)
+    phase_s["phase_train"] = time.perf_counter() - t_train
+    for fn in (phase_train_grads, phase_train_reference, phase_train_resume):
+        t_phase = time.perf_counter()
+        fn(dev)
+        phase_s[fn.__name__] = time.perf_counter() - t_phase
+    log("training phases: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in phase_s.items()) +
+        f"; {time.perf_counter() - t_train:.1f} s in all")
+    launches["flash_attention"] += train_launches["flash_attention_sm90"]
+    rows["flash_attention"]["simt_f32_launches"] = \
+        train_launches["flash_attention"]
+    rows["flash_attention"]["path"] = (
+        "sm90 (launches): 24 per prefill (phase_prefill), 24 per bfloat16 "
+        "training step (phase_train, make_train_step); CUDA-core "
+        "(simt_f32_launches): 48 per float32 training step under full remat "
+        "(phase_train, launch.train.main)")
+    launches["bp_topk_route"] += train_launches["bp_topk_route"]
+    rows["bp_topk_route"]["path"] = (
+        "Engine decode steps (phase_serve); 24 more per prefill "
+        "(phase_prefill); training (phase_train): 48 per float32 step under "
+        "full remat, 24 per bfloat16 step")
     launches["bp_route_decide"] = rows["bp_route_decide"]["launches"]
     launches["bp_topk"] = rows["bp_topk"]["launches"]
     for k, r in rows.items():
@@ -3444,11 +4153,13 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # A plain version timed at another shape than the kernel says which;
-    # flash attention also names its kernel and the CUDA-core kernel's and
-    # SDPA's float32 times; the bp_slot and bp_topk rows name the path
-    # that launched them.
+    # flash attention also names its kernel and the CUDA-core kernel's
+    # float32 time, bound and training launches, and SDPA's float32 time;
+    # the bp_slot, bp_topk and flash rows name the paths that launched
+    # them.
     shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms",
-             "library_f32_ms", "path")
+             "simt_f32_bound_ms", "simt_f32_launches", "library_f32_ms",
+             "path")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}
     for r in table["kernels"]:

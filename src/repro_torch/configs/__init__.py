@@ -4,10 +4,10 @@ Only the configurations whose family the port runs are here (dense and
 MoE decoder-only transformers); the JAX package's other architectures
 follow with their families (ROADMAP A13).
 """
-from . import granite_moe_1b_a400m, moonshot_v1_16b_a3b, qwen2_05b
+from . import granite_moe_1b_a400m, moonshot_v1_16b_a3b, olmo_1b, qwen2_05b
 from .base import SHAPES, ModelConfig, RunConfig, ShapeConfig, reduced
 
-_MODULES = (qwen2_05b, moonshot_v1_16b_a3b, granite_moe_1b_a400m)
+_MODULES = (olmo_1b, qwen2_05b, moonshot_v1_16b_a3b, granite_moe_1b_a400m)
 
 ARCHS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -3,9 +3,10 @@
 
 A copy of `repro.configs.base` for the families the port runs (the port
 imports nothing of `repro`), fields and defaults unchanged.  Of
-`RunConfig`'s knobs the port's step builders read `model` and
-`activ_dtype`; the sharding, remat and attention-impl knobs have nothing
-to choose on one device.
+`RunConfig`'s knobs the port's step builders read `model`,
+`activ_dtype`, `param_dtype`, `remat`, `grad_accum` and
+`grad_compression`; the sharding and attention-impl knobs have nothing to
+choose on one device.
 """
 from __future__ import annotations
 

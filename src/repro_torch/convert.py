@@ -1,7 +1,8 @@
 """Carry problems, queue state and model weights across from numpy.
 
 What has to match the reference are the problem constants, the queue
-state and, for the models, the weights.  A caller (the parity tests) turns
+state and, for the models, the weights (for training, the whole train
+state).  A caller (the parity tests) turns
 the reference's objects into dicts of numpy arrays with `np.asarray`, and
 these functions build the port's tensors from them — the port itself never
 sees a jax object.  Like every entry point they put their tensors on CUDA
@@ -19,6 +20,8 @@ from repro_torch.core.queues import NetState
 from repro_torch.device import resolve_device
 from repro_torch.fleet.batching import LEAVES, PaddedProblem
 from repro_torch.kernels.bp_slot.ref import STATE_LEAVES as STATE_FIELDS
+from repro_torch.optim import AdamWState, EFState
+from repro_torch.runtime.step import TrainState
 
 #: Leaf -> rank of one unbatched problem's leaf.
 _PROBLEM_RANK = {"edges": 2, "edge_cap": 1, "s1": 0, "s2": 0, "dest": 0,
@@ -74,11 +77,32 @@ def net_state_to_numpy(state: NetState) -> Dict[str, np.ndarray]:
 def params_from_numpy(tree, device=None):
     """A model's parameters from the reference's value tree (after
     `split_tree`) with every leaf turned into a numpy array: nested dicts
-    of tensors of the same names, shapes and dtypes, on ``device``."""
+    of tensors of the same names, shapes and dtypes, on ``device`` (a
+    None subtree, a parameter-free norm, stays None)."""
     dev = resolve_device(device)
 
     def build(t):
         if isinstance(t, dict):
             return {k: build(v) for k, v in t.items()}
-        return torch.as_tensor(np.array(t), device=dev)
+        return None if t is None else torch.as_tensor(np.array(t),
+                                                      device=dev)
     return build(tree)
+
+
+def train_state_from_numpy(state, device=None):
+    """The port's `runtime.step.TrainState` from the reference's, every
+    leaf turned into a numpy array (``jax.tree_util.tree_map(np.asarray,
+    state)``, which keeps its NamedTuples): params, AdamW count and
+    moments, step, router queues and error-feedback residuals (the last
+    two may be None), on ``device``."""
+    dev = resolve_device(device)
+    tensor = lambda a: torch.as_tensor(np.array(a), device=dev)
+    return TrainState(
+        step=tensor(state.step),
+        params=params_from_numpy(state.params, dev),
+        opt=AdamWState(count=tensor(state.opt.count),
+                       m=params_from_numpy(state.opt.m, dev),
+                       v=params_from_numpy(state.opt.v, dev)),
+        router_H=None if state.router_H is None else tensor(state.router_H),
+        ef=None if state.ef is None else EFState(
+            err=params_from_numpy(state.ef.err, dev)))

@@ -1,6 +1,8 @@
-"""Public entry point of flash attention, with the reference's signature.
+"""Public entry points of flash attention: the reference's op, and the
+op with a gradient for training.
 
-Port of `repro.kernels.flash_attention.ops.flash_attention_op`.  The
+`flash_attention_op` ports `repro.kernels.flash_attention.ops.
+flash_attention_op`.  The
 reference's ``block_q``/``block_k`` choose the Pallas kernel's tiles and
 require S and T to be multiples of them; the CUDA kernels' tiles are fixed
 (see `kernel.py`) and take any S and T, so here they are accepted for the
@@ -23,4 +25,44 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
-__all__ = ["flash_attention_op", "flash_attention_ref"]
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` with a gradient.
+
+    Forward: the `flash_attention` wrapper (on a CUDA tensor one launch of
+    a hand-written kernel), saving q, k and v, not the [S, T] scores.
+    Backward: the plain version (`flash_attention_ref`, float32 scores,
+    as the reference's XLA autodiff of its `sdpa`) recomputed on q, k, v
+    detached and widened to float32, under `torch.enable_grad`, and
+    `torch.autograd.grad` of it with the incoming gradient (widened too),
+    each result rounded once to its input's dtype; one layer's scores
+    exist only during that layer's backward.  The Pallas kernel has no
+    backward either; a hand-written backward kernel is later work
+    (ROADMAP B)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().to(torch.float32).requires_grad_()
+                   for t in saved]
+            out = flash_attention_ref(*qkv, causal=ctx.causal,
+                                      window=ctx.window)
+            grads = torch.autograd.grad(out, qkv,
+                                        grad_out.to(torch.float32))
+        return (*(g.to(t.dtype) for g, t in zip(grads, saved)), None, None)
+
+
+def flash_attention_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window=None) -> torch.Tensor:
+    """`flash_attention_op` with a gradient (`FlashAttentionFn`)."""
+    return FlashAttentionFn.apply(q, k, v, causal, window)
+
+
+__all__ = ["FlashAttentionFn", "flash_attention_fn", "flash_attention_op",
+           "flash_attention_ref"]

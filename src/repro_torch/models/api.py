@@ -5,6 +5,7 @@ decoder-only transformers):
 
   api = get_model(cfg)
   params~ = api.init(gen, dtype)                    # Annotated tree
+  loss, (H', metrics) = api.loss(params, batch, ...)  # training loss
   logits, H', aux = api.logits(params, batch, ...)  # prefill forward
   caches = api.init_decode(batch, max_len, dtype, device)
   logits, caches = api.decode_step(params, caches, batch, ...)
@@ -36,6 +37,12 @@ class ModelAPI:
         unless asked (`device.resolve_device`), raising without a card."""
         return transformer.init_model_state(self.cfg,
                                             device=resolve_device(device))
+
+    def loss(self, params, batch, *, activ_dtype=torch.bfloat16,
+             remat="full", router_H=None):
+        return self.mod.lm_loss(self.cfg, params, batch,
+                                activ_dtype=activ_dtype, remat=remat,
+                                router_H=router_H)
 
     def logits(self, params, batch, *, activ_dtype=torch.bfloat16,
                remat="none", router_H=None, last_only=False):

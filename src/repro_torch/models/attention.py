@@ -2,7 +2,8 @@
 
 Port of `repro.models.attention`: `KVCache`, `init_attn`, `_project_qkv`,
 `_mask`, `sdpa` (the einsum reference path, scores in float32 with -1e30
-on masked keys), `attention` (the train/prefill self-attention),
+on masked keys), `attention` (the train/prefill self-attention, with a
+gradient through the kernel on the card),
 `init_cache` and `decode_attention`.  The reference's other prefill forms
 (`sdpa_chunked`, `sdpa_banded`), cross-attention and `prefill_cache` wait
 for later slices (ROADMAP A13).
@@ -20,7 +21,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import resolve_device
-from ..kernels.flash_attention.ops import flash_attention_op
+from ..kernels.flash_attention.ops import (flash_attention_fn,
+                                          flash_attention_op)
 from .common import Init, apply_rope
 
 
@@ -100,19 +102,24 @@ def attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
     """Full (train/prefill) self-attention: x [B, S, d] -> [B, S, d].
 
-    The core is chosen by the device.  On CUDA it is `flash_attention_op`
-    (the hand-written kernel), given the [B, S, H, D] projections as their
-    [B, H, S, D] ``transpose(1, 2)`` views (the kernel reads strides, so
-    nothing is copied) and masking by index.  On the CPU it is `sdpa` with
+    The core is chosen by the device.  On CUDA it is the hand-written
+    kernel, given the [B, S, H, D] projections as their [B, H, S, D]
+    ``transpose(1, 2)`` views (the kernel reads strides, so nothing is
+    copied) and masking by index: through `flash_attention_fn`, which
+    carries the gradient (`FlashAttentionFn`), when the projections need
+    one (training), and through `flash_attention_op` otherwise (prefill,
+    and any forward whose weights need no gradient).  On the CPU it is
+    `sdpa` with
     `_mask` over ``positions``: the reference's "naive" impl.  The two
     agree because every caller passes positions = arange(S) (`lm_logits`),
     so position and index coincide.  The reference's sharding constraints
     and context parallelism do not apply on one device."""
     q, k, v = _project_qkv(cfg, p, x, positions)
     if x.device.type == "cuda":
-        out = flash_attention_op(
-            *(t.contiguous().transpose(1, 2) for t in (q, k, v)),
-            causal=causal, window=window).transpose(1, 2)
+        core = (flash_attention_fn if any(t.requires_grad for t in (q, k, v))
+                else flash_attention_op)
+        out = core(*(t.contiguous().transpose(1, 2) for t in (q, k, v)),
+                   causal=causal, window=window).transpose(1, 2)
     else:
         pos = positions if positions.dim() == 2 else positions[None, :]
         pos = pos.expand(x.shape[:2])

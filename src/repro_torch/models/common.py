@@ -58,13 +58,38 @@ class Init:
 
 
 def split_tree(tree):
-    """(annotated tree of dicts) -> (value tree, axes tree)."""
+    """(annotated tree of dicts) -> (value tree, axes tree); None (a
+    parameter-free norm) stays None in both."""
+    if tree is None:
+        return None, None
     if isinstance(tree, Annotated):
         return tree.value, tree.axes
     values, axes = {}, {}
     for k, v in tree.items():
         values[k], axes[k] = split_tree(v)
     return values, axes
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a value tree (nested dicts), keys in sorted order:
+    `jax.tree.leaves`'s order over the reference's dicts (None holds no
+    leaf)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of value trees of one structure (nested
+    dicts), as `jax.tree.map`, called in `tree_leaves`'s order."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 # ---------------------------------------------------------------------------
@@ -81,10 +106,19 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None,
     return x.to(dt)
 
 
+def layernorm_nonparam(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm (no gain/bias), float32 math."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    centered = x - mu
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    return (centered * torch.rsqrt(var + eps)).to(dt)
+
+
 def norm(cfg, x: torch.Tensor, gamma: torch.Tensor | None) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet "
-                                  f"(ROADMAP A13)")
+    if cfg.norm == "layernorm_nonparam":
+        return layernorm_nonparam(x)
     return rmsnorm(x, gamma)
 
 
@@ -147,6 +181,20 @@ def unembed(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         c = cfg.logit_softcap
         logits = (torch.tanh(logits.to(torch.float32) / c) * c).to(x.dtype)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE: float32 logsumexp minus the gold logit, on
+    logits of any dtype; ``mask`` (0/1, labels' shape) averages over the
+    kept positions."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -11,8 +11,12 @@ Routing (`_route`) has the reference's two branches: ``use_kernel=True``
 runs the whole gate after the router projection through `bp_topk_route`
 (on a CUDA tensor one launch of a hand-written kernel: the H-bias, the
 reference's fused bp_topk gate, the expert counts and the H update), used
-for inference routing; ``use_kernel=False`` runs the plain softmax/top-k
-path.  Both take the lowest expert index on ties.
+for inference routing and training (when the logits need a gradient, through
+`kernels.bp_topk.ops.BpTopkRouteFn`, which carries the gradient of the
+weights); ``use_kernel=False`` runs the plain softmax/top-k path.  Both
+take the lowest expert index on ties.  As in the reference, no gradient
+flows through the bias H / C, the counts, H or the aux loss's load
+fractions.
 
 The combine is deterministic: each token's k contributions are gathered
 in the token's own pick order and summed over k, with no scatter-add; it
@@ -28,6 +32,7 @@ import torch
 
 from ..core.router import RouterState, expert_counts, topk_first
 from ..kernels.bp_topk.kernel import bp_topk_route
+from ..kernels.bp_topk.ops import bp_topk_route_fn
 from .common import Init
 
 
@@ -51,8 +56,10 @@ def _route(cfg, p, x_flat, router_state: RouterState, *,
     logits = torch.einsum("gtd,de->gte", x_flat,
                           p["router"].to(x_flat.dtype))
     if use_kernel:
-        # one launch: bias, gate, counts, H update (logits read in place)
-        idx, w, counts, H_new, steps = bp_topk_route(
+        # one launch: bias, gate, counts, H update (logits read in place);
+        # through the Function that carries dL/dw when one is needed
+        gate = bp_topk_route_fn if logits.requires_grad else bp_topk_route
+        idx, w, counts, H_new, steps = gate(
             logits.reshape(G * Tg, E).contiguous(),
             router_state.H.contiguous(), router_state.steps,
             G * Tg * k / E, k, backpressure=cfg.router == "backpressure")

@@ -1,30 +1,41 @@
-"""Decoder-only transformer stack (dense and MoE): init, the prefill
-forward and decode.
+"""Decoder-only transformer stack (dense and MoE): init, the training
+loss, the prefill forward and decode.
 
 Port of `repro.models.transformer` for stacks without the local/global
-pattern.  Layer params are stacked ([L, ...] leading dims) as in the
-reference; its `layer_scan` over the stack becomes a Python loop over the
-layers.  `lm_loss` waits for the training slice, and the local/global
-pattern for its families (ROADMAP A13).
+pattern (which waits for its families, ROADMAP A13).  Layer params are
+stacked ([L, ...] leading dims) as in the reference; its `layer_scan` over
+the stack becomes a Python loop over the layers, each layer's params one
+`unbind` view per leaf (`unstack`), so the gradient of a stacked leaf is
+one stack of its layers' gradients.  `_remat` gives the reference's
+per-block rematerialization: ``"full"`` keeps only each block's inputs
+(`torch.utils.checkpoint`), ``"dots"`` also the outputs of its 2-D
+matrix products (`jax.checkpoint_policies.dots_with_no_batch_dims_saveable`
+as a selective-checkpoint policy), ``"none"`` everything.
 
 Every MoE layer routes through `bp_topk_route`, the whole gate in one
-launch of a CUDA kernel on the card, at decode and at prefill.  The prefill forward
-(`lm_logits`) threads the per-layer router queues H through the stack and
-returns each layer's new H, as the reference does; `lm_decode_step`, like
-the reference, drops them: at decode the caller's H is the bias.
+launch of a CUDA kernel on the card, at decode, prefill and training
+(through `BpTopkRouteFn` when the router needs a gradient).  The forward
+(`lm_logits`, `lm_loss`) threads the per-layer router queues H through
+the stack and returns each layer's new H, as the reference does;
+`lm_decode_step`, like the reference, drops them: at decode the caller's
+H is the bias.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..core.router import RouterState
 from ..device import resolve_device
 from .attention import (KVCache, attention, decode_attention, init_attn,
                         init_cache)
-from .common import (Init, embed, init_embedding, init_mlp, init_norm, norm,
-                     swiglu, unembed)
+from .common import (Init, cross_entropy, embed, init_embedding, init_mlp,
+                     init_norm, norm, swiglu, unembed)
 from .moe import init_moe, moe_ffn
 
 
@@ -38,6 +49,31 @@ def _check_family(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with local_global="
             f"{cfg.local_global} is not ported yet (ROADMAP A13)")
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Save the outputs of matrix products without batch dims (`mm`, and
+    `bmm` over one batch entry, which is how `torch.einsum` runs a
+    projection); recompute everything else."""
+    if func is torch.ops.aten.mm.default or (
+            func is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` under the reference's remat ``mode``: none | dots | full."""
+    if mode == "none":
+        return fn
+    if mode == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+    elif mode == "full":
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"remat {mode!r}: expected none, dots or full")
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=context_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -107,21 +143,22 @@ def init_stack(cfg, ini: Init) -> dict:
 
 def stack_fwd(cfg, p: dict, x, positions, *, remat: str = "full",
               router_H=None):
-    """Run all blocks in order; returns (x, router_H' [L, E] or None,
-    aux_total).  ``remat`` is accepted for the reference's signature and
-    ignored: the prefill runs without gradients."""
-    del remat
+    """Run all blocks in order, each under `_remat(remat)`; returns (x,
+    router_H' [L, E] or None, aux_total).  A rematerialized block's
+    forward runs again in the backward (its kernels launch again); what
+    that second run returns is dropped, so each layer's H is updated
+    once."""
     _check_family(cfg)
     moe = cfg.family == "moe"
     if moe and router_H is None:
         raise ValueError(f"{cfg.name}: an MoE stack needs router_H [L, E]")
-    stack = p["layers"]
+    body = _remat(functools.partial(block_fwd, cfg, window=cfg.window),
+                  remat)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     H_out = []
-    for i in range(cfg.n_layers):
-        x, H, aux = block_fwd(cfg, layer(stack, i), x, positions,
-                              window=cfg.window,
-                              router_H=router_H[i] if moe else None)
+    for i, lp in enumerate(unstack(p["layers"], cfg.n_layers)):
+        x, H, aux = body(lp, x, positions,
+                         router_H=router_H[i] if moe else None)
         aux_total = aux_total + aux
         H_out.append(H)
     return x, (torch.stack(H_out) if moe else router_H), aux_total
@@ -147,8 +184,17 @@ def layer(tree, i: int):
     return tree[i]
 
 
+def unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree of dicts, each leaf split by one
+    `unbind` (views, as `layer` gives)."""
+    if isinstance(tree, dict):
+        per = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
+
+
 # ---------------------------------------------------------------------------
-# LM wrapper: init / decode
+# LM wrapper: init / loss / decode
 # ---------------------------------------------------------------------------
 
 def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
@@ -177,6 +223,20 @@ def lm_logits(cfg, params, tokens, *, activ_dtype=torch.bfloat16,
     if last_only:
         x = x[:, -1:]
     return unembed(cfg, params["embed"], x), H_out, aux
+
+
+def lm_loss(cfg, params, batch, *, activ_dtype=torch.bfloat16,
+            remat="full", router_H=None):
+    """batch {tokens [B, S+1], optional mask [B, S]} -> (scalar loss,
+    (router_H', {"ce", "aux"})): the CE of predicting ``tokens[:, 1:]``
+    from ``tokens[:, :-1]`` (`common.cross_entropy`) plus the routers' aux
+    loss."""
+    tokens = batch["tokens"]
+    logits, H_out, aux = lm_logits(cfg, params, tokens[:, :-1],
+                                   activ_dtype=activ_dtype, remat=remat,
+                                   router_H=router_H)
+    ce = cross_entropy(logits, tokens[:, 1:], batch.get("mask", None))
+    return ce + aux, (H_out, {"ce": ce, "aux": aux})
 
 
 def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):

@@ -1,5 +1,5 @@
-"""Runtime of the port: the step builders (`runtime.step`: prefill and
-serve), the injectable fault plane and straggler detection
+"""Runtime of the port: the step builders (`runtime.step`: train,
+prefill and serve), the injectable fault plane and straggler detection
 (`runtime.fault`), and preemption-safe engine runs
 (`runtime.resilience`)."""
 from .fault import (FaultExhausted, FaultPlane, FaultSpec, InjectedFault,
