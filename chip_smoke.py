@@ -12,7 +12,9 @@ on failure:
 
   1. device and build: the card, torch and CUDA versions, full-float32
      matmuls (no TF32), kernel build time; ptxas's registers and spills for
-     the flash sources, the fused slot step's registers, and the sm90
+     the flash sources (no spill store in the CUDA-core kernel), that
+     kernel's build seconds and CTAs per SM, the fused slot step's
+     registers, and the sm90
      flash kernel's SASS, which must hold HGMMA (wgmma) instructions;
   2. each kernel against its plain PyTorch version on the card, random and
      tie-heavy inputs, outputs bit-identical, device times beside each
@@ -108,15 +110,20 @@ on failure:
      bfloat16 through the sm90 kernel (the launch counters show which), at
      bench_kernels' tile (1, 8, 512, 128) with 4 kv heads, causal, window
      256; granite's heads (16 over 8, D=64) at S=2,048, causal; a ragged
-     S=1,000, not causal; a ragged S=777, causal, window 100; then at
+     S=1,000, not causal; a ragged S=777, causal, window 100; 8 heads over
+     8 (S=700) and 16 over 4 (S=600) at D=64; D=16, window 40; then at
      granite's prefill shape (B=1, S=32,768, bfloat16) 17 windows of query
      rows spread over the sequence against a plain computation within bf16
-     rounding, and device times of the sm90 kernel, of the CUDA-core
-     kernel in float32, of the plain version (at S=4,096: its scores do
-     not fit at 32k) and of SDPA (bf16, and float32 beside the CUDA-core
-     kernel) beside the bound (both products at the bf16 tensor-core
-     rate) and the sm90 kernel's own floor (1.5x: P.V runs for p_hi and
-     p_lo);
+     rounding (and, in float32, within 1e-5 through the CUDA-core kernel,
+     called twice: bit-identical), and device times of the sm90 kernel, of
+     the CUDA-core kernel in float32, of the plain version (at S=4,096:
+     its scores do not fit at 32k) and of SDPA (bf16, and float32 beside
+     the CUDA-core kernel) beside the bound (both products at the bf16
+     tensor-core rate) and the sm90 kernel's own floor (1.5x: P.V runs for
+     p_hi and p_lo); the CUDA-core kernel at the float32 training step's
+     shape (B=8, S=512) against its plain version, twice bit-identical,
+     timed beside the plain version, SDPA's float32 kernel and its float32
+     bound;
  11. the prefill path at full width: granite-moe-1b-a400m (24 layers,
      random float32 weights from a seed) through `make_prefill_step` at
      B=1, S=32,768, bfloat16 activations, 2 timed prefills after a short
@@ -175,6 +182,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -220,15 +228,22 @@ LOGIT_ATOL = 1e-4               # its logits tolerance (see phase_serve_ref)
 #: bp_route at bench_kernels' shape: N nodes, C classes, E links.
 ROUTE_N, ROUTE_C, ROUTE_E = 512, 96, 4096
 #: flash_attention cases (B, H, KH, S, D, causal, window), T = S, each in
-#: float32 (the CUDA-core kernel) and bfloat16 (the sm90 kernel):
-#: bench_kernels' tile, granite's heads, a ragged non-causal S, a ragged
-#: windowed S at granite's head dim.
+#: float32 (the CUDA-core kernel) and bfloat16 (the sm90 kernel at D = 64
+#: and 128, else the CUDA-core kernel): bench_kernels' tile, granite's
+#: heads, a ragged non-causal S, a ragged windowed S at granite's head dim;
+#: head groups of 1 and 4 (one CTA a group) at D = 64, and D = 16.
 FLASH_CASES = ((1, 8, 4, 512, 128, True, 256),
                (1, 16, 8, 2048, 64, True, None),
                (1, 16, 8, 1000, 64, False, None),
-               (1, 16, 8, 777, 64, True, 100))
+               (1, 16, 8, 777, 64, True, 100),
+               (1, 8, 8, 700, 64, True, None),
+               (1, 16, 4, 600, 64, True, None),
+               (1, 4, 2, 300, 16, True, 40))
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:42
 PREFILL_B, PREFILL_S, PREFILL_WARM_S = 1, 32_768, 1024
+#: The CUDA-core kernel's shape in the float32 training step (phase_train):
+#: B = 8 rows of S = 512 tokens, granite's 16 heads over 8, D = 64.
+FLASH_TRAIN_SHAPE = (8, 16, 8, 512, 64)
 FLASH_PLAIN_S = 4096            # the plain version's timing shape
 #: Query-row windows (first row, rows) held to a plain computation at the
 #: prefill shape: the first 64-query block, one across the edge of the
@@ -432,15 +447,30 @@ def wall_ms(fn, n: int = 60, warm: int = 10) -> float:
 
 
 def phase_build_report(_build) -> None:
-    """What ptxas reported for the flash sources (registers, spills), the
-    fused slot step's registers and shared memory, and the sm90 kernel's
-    SASS: it must hold HGMMA (wgmma) instructions."""
+    """What ptxas reported for the flash sources (registers, spills; no
+    spill store in the CUDA-core kernel's instantiations), that kernel's
+    build seconds and CTAs per SM, the fused slot step's registers and
+    shared memory, and the sm90 kernel's SASS: it must hold HGMMA (wgmma)
+    instructions."""
     for name in ("flash_attention.cu", "flash_attention_sm90.cu"):
         src = next(s for s in _build.sources() if s.name == name)
         lines = _build.library_path(src).with_suffix(".log").read_text()
         log(f"ptxas, {name}: " + " | ".join(
             ln.strip() for ln in lines.splitlines()
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln))
+        if name == "flash_attention.cu":
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                                 lines)]
+            check(len(spills) >= 6 and not any(spills),
+                  f"{name}: ptxas reports spill stores {spills} (or fewer "
+                  f"than its 6 instantiations)")
+            secs = re.findall(re.escape(_build.NVCC_SECONDS) + r" (\S+)",
+                              lines) or ["not recorded"]
+    from repro_torch.kernels.flash_attention import kernel as K
+    log(f"flash_attention.cu: nvcc {secs[-1]} s (while the other sources "
+        f"built beside it); CTAs of 256 threads per SM: " + ", ".join(
+            f"{str(dt).split('.')[1]} D={D}: {K.occupancy(dt, D)}"
+            for dt, dims in K.HEAD_DIMS.items() for D in dims))
     cuobjdump = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
     src = next(s for s in _build.sources() if s.name == "bp_slot_step.cu")
     usage = subprocess.run([str(cuobjdump), "--dump-resource-usage",
@@ -2856,11 +2886,12 @@ def flash_windows(S: int):
     return FLASH_WINDOWS + tuple((int(r), 64) for r in starts)
 
 
-def check_windows(out, q, k, v, what: str):
-    """Hold the rows of `flash_windows` of a causal bf16 ``out`` to a plain
-    float32 computation within FLASH_BF16_ROUNDING; returns (max abs
-    error, largest share of the gate), and the windows."""
-    atol, rtol = FLASH_BF16_ROUNDING
+def check_windows(out, q, k, v, what: str, tol=FLASH_BF16_ROUNDING):
+    """Hold the rows of `flash_windows` of a causal ``out`` to a plain
+    float32 computation within ``tol`` = (atol, rtol) (for bf16, bf16
+    rounding); returns (max abs error, largest share of the gate), and the
+    windows."""
+    atol, rtol = tol
     windows = flash_windows(q.shape[2])
     rows_err, rows_use = 0.0, 0.0
     for r0, n in windows:
@@ -2872,7 +2903,7 @@ def check_windows(out, q, k, v, what: str):
         check(within(got, ref, atol, rtol),
               f"flash_attention on {what}: rows {r0}..{r0 + n - 1} differ "
               f"from the plain computation by {float(err.max()):.3e}, more "
-              f"than bf16 rounding ({atol} + {rtol} |ref|)")
+              f"than {atol} + {rtol} |ref|")
     return rows_err, rows_use, windows
 
 
@@ -2885,7 +2916,12 @@ def phase_flash(dev, peaks):
     plain computation under the same rule, then device times of the sm90
     kernel, of the CUDA-core kernel in float32, of the plain version (at
     FLASH_PLAIN_S) and of SDPA (the library column, timed only; in bf16,
-    and in float32 beside the CUDA-core kernel) beside the bound."""
+    and in float32 beside the CUDA-core kernel) beside the bound.  The
+    CUDA-core kernel in float32 also at the prefill shape (its row windows
+    within FLASH_TOL of a plain computation) and at the training step's
+    FLASH_TRAIN_SHAPE (against the plain version), each called twice with
+    bit-identical results, and timed at the training shape beside SDPA's
+    float32 kernel and its own float32 bound."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2938,6 +2974,14 @@ def phase_flash(dev, peaks):
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), n=5, warm=2)
     q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_tol = (FLASH_TOL["float32"], FLASH_TOL["float32"])
+    out32 = K.flash_attention(q32, k32, v32)
+    check(bits_equal(out32, K.flash_attention(q32, k32, v32)),
+          f"the CUDA-core kernel at S={S}, float32: two calls differ")
+    rows32_err, rows32_use, _ = check_windows(out32, q32, k32, v32,
+                                              f"float32 randn at S={S}",
+                                              f32_tol)
+    del out32
     simt_ms = device_ms(lambda: K.flash_attention(q32, k32, v32),
                         match="flash_attention_kernel<", n=2, warm=1)
     # SDPA's float32 kernel (memory-efficient) takes no grouped heads: the
@@ -2948,6 +2992,8 @@ def phase_flash(dev, peaks):
         lib32_ms = device_ms(lambda: F.scaled_dot_product_attention(
             q32, k32, v32, is_causal=True), n=2, warm=1)
     del q32, k32, v32
+    train = flash_train(gen, dev, peaks, f32_tol)
+    errs.append(train.pop("pair"))
     q4, k4, v4 = (t[:, :, :FLASH_PLAIN_S] for t in (q, k, v))
     ms4 = device_ms(lambda: K.flash_attention(q4, k4, v4),
                     match="flash_attention_sm90_kernel<", n=5, warm=1)
@@ -2962,7 +3008,8 @@ def phase_flash(dev, peaks):
         replaces="src/repro/kernels/flash_attention/kernel.py:74",
         max_abs_err=max_abs_err(errs), ms=ms, plain_ms=plain4,
         plain_S=FLASH_PLAIN_S, ms_at_plain_S=ms4, simt_f32_ms=simt_ms,
-        library_ms=lib_ms, library_f32_ms=lib32_ms, bytes=nbytes, ops=nops)
+        library_ms=lib_ms, library_f32_ms=lib32_ms, bytes=nbytes, ops=nops,
+        **train)
     # The operands are bf16: both products at the tensor cores' bf16 rate
     # (QK^T of bf16 operands is exact in float32 accumulation; P.V at that
     # rate takes P in bf16, as SDPA does), the least the card could take.
@@ -2985,7 +3032,10 @@ def phase_flash(dev, peaks):
         f"float32 bound {row['simt_f32_bound_ms']:.4f} ms by {simt_by}, "
         f"simt_f32_bound_ms), SDPA "
         f"in float32 there (memory-efficient backend, kv heads repeated "
-        f"before the call) {lib32_ms:.4f} ms (library_f32_ms); "
+        f"before the call) {lib32_ms:.4f} ms (library_f32_ms); float32 "
+        f"row windows within {rows32_err:.3e} of a plain computation (at "
+        f"most {rows32_use:.3f} of the {FLASH_TOL['float32']} gate), two "
+        f"calls bit-identical; "
         f"{len(windows)} row windows ({sum(n for _, n in windows)} rows, "
         f"first rows {[r for r, _ in windows]}) within {rows_err:.3e} of a "
         f"plain computation, at most {rows_use:.3f} of the bf16 rounding "
@@ -2993,6 +3043,57 @@ def phase_flash(dev, peaks):
         f"(ms_at_plain_S), plain version {plain4:.4f} ms (plain_ms; its "
         f"scores do not fit at S={S})")
     return row
+
+
+def flash_train(gen, dev, peaks, tol):
+    """The CUDA-core kernel at the float32 training step's shape
+    (FLASH_TRAIN_SHAPE, causal): against the plain version within ``tol``,
+    two calls bit-identical; its device time beside the plain version's,
+    SDPA's float32 kernel (memory-efficient backend, kv heads repeated
+    before the timed call) and its float32 bound.  Returns the row's
+    `simt_f32_train_*` and `plain_f32_train_ms` keys and the (out, plain)
+    pair."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, H, KH, S, D = FLASH_TRAIN_SHAPE
+    q, k, v = flash_inputs(gen, B, H, KH, S, D, torch.float32, dev)
+    before = K.flash_attention.launches
+    out = K.flash_attention(q, k, v)
+    again = K.flash_attention(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    check(K.flash_attention.launches == before + 2,
+          "the training shape did not launch the CUDA-core kernel twice")
+    check(bits_equal(out, again),
+          f"the CUDA-core kernel at {FLASH_TRAIN_SHAPE}: two calls differ")
+    err = max_abs_err([(out, ref)])
+    check(within(out, ref, *tol), f"the CUDA-core kernel at "
+          f"{FLASH_TRAIN_SHAPE} float32 differs from its plain version by "
+          f"{err:.3e} (tolerance {tol[0]})")
+    ms = device_ms(lambda: K.flash_attention(q, k, v),
+                   match="flash_attention_kernel<")
+    plain_ms = device_ms(lambda: flash_attention_ref(q, k, v), n=20, warm=3)
+    kr, vr = (t.repeat_interleave(H // KH, dim=1) for t in (k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True))
+    nops = 4 * B * H * D * S * (S + 1) // 2
+    nbytes = 4 * (2 * B * H * S * D + 2 * B * KH * S * D)
+    bound, by = bound_of(nbytes, nops, peaks, "float32")
+    log(f"the CUDA-core kernel at the training shape {FLASH_TRAIN_SHAPE} "
+        f"(B, H, KH, S, D), float32, causal: {ms:.4f} ms on the card "
+        f"(simt_f32_train_ms; {nops / ms / 1e9:.2f} TFLOP/s), bound "
+        f"{bound:.4f} ms by {by} ({nops} flops, {nbytes} B; "
+        f"simt_f32_train_bound_ms), plain version {plain_ms:.4f} ms "
+        f"(plain_f32_train_ms), SDPA float32 {lib_ms:.4f} ms "
+        f"(library_f32_train_ms); within {err:.3e} of the plain version, "
+        f"two calls bit-identical")
+    return dict(simt_f32_train_ms=ms, plain_f32_train_ms=plain_ms,
+                library_f32_train_ms=lib_ms, simt_f32_train_bound_ms=bound,
+                pair=(out, ref))
 
 
 def phase_flash_projections(cfg, params, toks):
@@ -4154,12 +4255,15 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # A plain version timed at another shape than the kernel says which;
     # flash attention also names its kernel and the CUDA-core kernel's
-    # float32 time, bound and training launches, and SDPA's float32 time;
+    # float32 time, bound and training launches, and SDPA's float32 time,
+    # at the prefill shape and at the training shape (`_train_`, with the
+    # plain version's time there);
     # the bp_slot, bp_topk and flash rows name the paths that launched
     # them.
     shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms",
              "simt_f32_bound_ms", "simt_f32_launches", "library_f32_ms",
-             "path")
+             "simt_f32_train_ms", "plain_f32_train_ms",
+             "library_f32_train_ms", "simt_f32_train_bound_ms", "path")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}
     for r in table["kernels"]:

@@ -22,8 +22,8 @@ where ``<flags>`` are the source's own (`SOURCE_FLAGS`, by file name):
 Libraries go to ``build/repro_torch/`` at the checkout's root (listed in
 .gitignore), named by a hash of the source, the headers (``*.cuh``) of its
 directory and its flags, so an edited source, header or flag is rebuilt
-and an unchanged one is reused; nvcc's output
-goes beside it as ``<name>-<hash>.log``.  Nothing is built when a module
+and an unchanged one is reused; nvcc's output and its wall seconds
+go beside it as ``<name>-<hash>.log``.  Nothing is built when a module
 is imported: `load` builds at a kernel's first CUDA call, and `build_all`
 builds every source up front, one nvcc per source, all at once.
 """
@@ -45,6 +45,8 @@ PKG_ROOT = pathlib.Path(__file__).resolve().parents[1]      # src/repro_torch
 BUILD_DIR = PKG_ROOT.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: The build log's last line: this, then nvcc's wall seconds.
+NVCC_SECONDS = "nvcc wall seconds:"
 #: Each source's flags beside NVCC_FLAGS, by file name (see the docstring).
 SOURCE_FLAGS = {
     "bp_slot.cu": ("-fmad=false",),
@@ -106,13 +108,16 @@ def build(src: pathlib.Path) -> pathlib.Path:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [nvcc(), *flags(src), "-o", tmp, str(src)]
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
+        secs = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                                f"{' '.join(cmd)}\n{proc.stdout}")
-        out.with_suffix(".log").write_text(proc.stdout)
+        out.with_suffix(".log").write_text(
+            f"{proc.stdout}{NVCC_SECONDS} {secs:.2f}\n")
         os.replace(tmp, out)      # atomic: a reader never sees half a file
     return out
 

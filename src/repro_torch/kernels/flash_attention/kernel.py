@@ -15,16 +15,23 @@ The kernel is chosen by dtype and head dim only:
     products on the bf16 tensor cores (wgmma, K/V staged by TMA), 128-query
     x 64- or 128-key tiles;
   * float32 (D in {16, 32, 64, 128}) and bfloat16 with D in {16, 32}:
-    `csrc/flash_attention.cu`, the CUDA-core kernel, 64 x 64 tiles.
+    `csrc/flash_attention.cu`, the CUDA-core kernel: one CTA of 256
+    threads per (batch row, kv head, query block) covering up to 8 of the
+    query heads that share the kv head (128 (head, query) rows), register
+    tiles of 4 rows x 4 keys (S) and 4 rows x D/8 dims (O) per thread, and
+    32-key K/V tiles through a 2-stage ring of ``cp.async`` copies.
 
 With T = 0 no row has a key, and with an empty q there is no row: the
 wrapper then returns zeros without a launch, whatever the dtype.  Both kernels take any S and T >= 1 and read q, k and v
 through their batch, head and sequence strides with the head dim
 contiguous, so a [B, S, H, D] tensor passes as its ``transpose(1, 2)`` view
-without a copy; the output takes q's strides (`torch.empty_like`).  The
-sm90 kernel reads through TMA tensor maps, which need a 16-byte aligned
-base and strides of a multiple of 16 bytes: an input that lacks either is
-first copied into a contiguous clone (the model's projections never are).
+without a copy; the output takes q's strides (`torch.empty_like`).  Both
+read rows in 16-byte pieces: the sm90 kernel through TMA tensor maps
+(`tma_ready`), the CUDA-core kernel by ``cp.async`` and vector loads
+(`async_copy_ready`); each needs a 16-byte aligned base and strides of a
+multiple of 16 bytes, and an input that lacks either is first copied into
+a contiguous clone (the model's projections never are).  The kernels
+themselves never fall back to another kernel or to the plain version.
 
 ``flash_attention.launches`` counts launches of the CUDA-core kernel and
 ``flash_attention.launches_sm90`` those of the sm90 kernel; a CPU call
@@ -59,6 +66,9 @@ def _lib() -> ctypes.CDLL:
             vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
             ctypes.POINTER(ctypes.c_longlong), ci, ci, ctypes.c_float, vp]
         lib.flash_attention_fwd.restype = ci
+        lib.flash_attention_occupancy.argtypes = [
+            ci, ci, ctypes.POINTER(ci)]
+        lib.flash_attention_occupancy.restype = ci
         lib._typed = True
     return lib
 
@@ -81,13 +91,31 @@ def uses_sm90(dtype: torch.dtype, head_dim: int) -> bool:
     return dtype == torch.bfloat16 and head_dim in HEAD_DIMS_SM90
 
 
-def tma_ready(t: torch.Tensor) -> bool:
-    """A 16-byte aligned bf16 tensor whose batch, head and sequence strides
-    are positive multiples of 8 elements (16 bytes), where the dim is
-    longer than 1: what a TMA tensor map can describe."""
+def async_copy_ready(t: torch.Tensor) -> bool:
+    """A 16-byte aligned tensor whose batch, head and sequence strides are
+    multiples of 16 bytes, where the dim is longer than 1: rows that the
+    CUDA-core kernel's 16-byte copies and loads can read (its head dims
+    make every row a whole number of 16-byte pieces)."""
+    n = 16 // t.element_size()
     return t.data_ptr() % 16 == 0 and all(
-        s > 0 and s % 8 == 0 for s, n in zip(t.stride()[:3], t.shape[:3])
-        if n > 1)
+        s % n == 0 for s, m in zip(t.stride()[:3], t.shape[:3]) if m > 1)
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """`async_copy_ready` with positive strides: what a TMA tensor map can
+    describe (the sm90 kernel's bf16 inputs)."""
+    return async_copy_ready(t) and all(
+        s > 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
+def occupancy(dtype: torch.dtype, head_dim: int) -> int:
+    """CTAs of the CUDA-core kernel's (dtype, head dim) instantiation that
+    fit on one SM of the current card at once (CUDA only)."""
+    ctas = ctypes.c_int(0)
+    _raise_on(_lib().flash_attention_occupancy(
+        _DTYPES[dtype], head_dim, ctypes.byref(ctas)),
+        "flash_attention_occupancy")
+    return ctas.value
 
 
 def _map_strides(t: torch.Tensor):
@@ -143,7 +171,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.zeros_like(q)
     if sm90:
         return _flash_sm90(q, k, v, causal=causal, window=window)
-    out = torch.empty_like(q)
+    q, k, v = (t if async_copy_ready(t) else
+               t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    out = torch.empty_like(q)     # q's strides, or contiguous: aligned too
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     with torch.cuda.device(dev):

@@ -5,9 +5,12 @@ On the CPU the port's wrapper runs its plain PyTorch version
 kernel (interpret mode) and its `attention_ref` within the bounds of
 `tests/test_kernels.py`: 1e-5 in float32, 2e-2 in bfloat16.  Torch
 emulations of the two CUDA kernels pin their algebra without a GPU:
-  * the CUDA-core kernel's fold (64-query x 64-key tiles, the blocks it
-    skips, the mask applied only on edge blocks, one running max, sum and
-    accumulator per row), held to the plain version at the same bounds;
+  * the CUDA-core kernel's fold (CTAs of 128 (head, query) rows covering
+    up to 8 heads of a kv head's group, 16-row warps, 32-key tiles, the
+    tiles a CTA stages and a warp skips, q pre-scaled by scale * log2(e)
+    in one float32 product, exp2, the mask applied only on edge tiles, one
+    running max, sum and accumulator per row), held to the plain version at
+    the same bounds; its grid covers each (batch, head, query) row once;
   * the sm90 kernel's (128-query blocks as two 64-row warpgroups, 128- or
     64-key tiles, S of bf16 operands in float32 with the scale and log2(e)
     applied to S, exp2, P split into bf16 p_hi + p_lo, O += p_hi V +
@@ -52,7 +55,10 @@ RAGGED_CASES = [
     (1, 2, 1, 12, 12, 16, True, None, "float32"),
 ]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-BQ = BK = 64        # the kernel's tile (BQ, BK in csrc/flash_attention.cu)
+#: csrc/flash_attention.cu: a CTA's (head, query) rows, its warps' rows, the
+#: keys of a K/V tile, the rows of a lane (rg + 4 i).
+ROWS, WROWS, BK, RT = 128, 16, 32, 4
+NW = ROWS // WROWS
 #: bf16 outputs against float32 math: |out - ref| <= 1e-5 + 2^-8 |ref|
 #: (rounding to bf16 moves a value by at most 2^-8 of itself).
 BF16_ROUNDING = (1e-5, 2.0 ** -8)
@@ -61,16 +67,44 @@ SM90_CASES = [c[:8] + ("bfloat16",) for c in FLASH_CASES + RAGGED_CASES
               if c[5] in (64, 128)]
 
 
-def kv_blocks(q0, S, T, *, causal, window):
-    """The 64-key blocks the kernel visits for the query block starting at
-    ``q0`` (``lo``, ``hi`` in the source): those holding a key that some
-    row q0..q0+63 below S may see."""
-    q_last = min(q0 + BQ, S) - 1
-    lo_key = max(q0 - window + 1, 0) if window is not None else 0
-    hi_key = min(T - 1, q_last) if causal else T - 1
-    if hi_key < lo_key:
+def heads_per_cta(G):
+    """heads_per_cta in the source: the largest power of two dividing G,
+    at most 8 (GC); a CTA covers GC heads x ROWS / GC queries."""
+    gc = 1
+    while gc < 8 and G % (2 * gc) == 0:
+        gc *= 2
+    return gc
+
+
+def tiles(first, last, T, *, causal, window):
+    """tile_range in the source: the BK-key tiles holding a key that some
+    query first..last may see."""
+    lo_key = max(first - window + 1, 0) if window is not None else 0
+    hi_key = min(T - 1, last) if causal else T - 1
+    if last < first or hi_key < lo_key:
         return range(0)
     return range(lo_key // BK, hi_key // BK + 1)
+
+
+def ctas(B, H, KH, S):
+    """The kernel's grid (head groups, batch rows, query blocks), CTA by
+    CTA in launch order (x fastest): (b, h0, q0, BQ), its first query head
+    h0 (GC heads h0 .. h0 + GC - 1) and first query q0 (BQ = ROWS / GC
+    queries); the query blocks that see the most keys go first."""
+    GC = heads_per_cta(H // KH)
+    BQ = ROWS // GC
+    nq = -(-S // BQ)
+    for z in range(nq):                         # blockIdx.z
+        for b in range(B):                      # blockIdx.y
+            for x in range(H // GC):            # blockIdx.x
+                yield b, x * GC, (nq - 1 - z) * BQ, BQ
+
+
+def warp_rows(h0, q0, BQ, w):
+    """Warp w's head and first query: CTA rows 16 w .. 16 w + 15, row r =
+    (head h0 + r // BQ, query q0 + r % BQ)."""
+    r0 = w * WROWS
+    return h0 + r0 // BQ, q0 + r0 % BQ
 
 
 def inputs(case, seed=0):
@@ -116,54 +150,68 @@ def test_plain_matches_pallas_kernel_and_ref(J, case):
                                    rtol=TOL[dtype], atol=TOL[dtype])
 
 
+def ex2(x):
+    """ex2.approx.ftz: 2^x, results below 2^-126 flushed to 0."""
+    y = torch.exp2(x)
+    return torch.where(y < 2.0 ** -126, 0.0, y)
+
+
 def emulate_kernel(q, k, v, *, causal, window):
-    """The CUDA kernel's algebra in torch: per (batch, head, 64-query
-    block), stage q * scale and the visited 64-key blocks as float32, mask
-    only edge blocks, fold each block into a running max / sum / acc."""
+    """The CUDA-core kernel's algebra in torch, CTA by CTA and warp by warp
+    (`ctas`, `warp_rows`): q times c = scale * log2(e) (one float32
+    product); each warp folds the BK-key tiles its rows can see (a subset
+    of its CTA's) into a running max, sum and accumulator per row, the
+    mask applied only on edge tiles, alpha = exp2(m - m'), p = exp2(s -
+    m'), 0 on masked keys; out = acc / max(l, 1e-30)."""
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
     G = H // KH
-    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    c = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32) * \
+        torch.tensor(math.log2(math.e), dtype=torch.float32)
     out = torch.zeros(q.shape, dtype=torch.float32)
-    for b in range(B):
-        for h in range(H):
-            for q0 in range(0, S, BQ):
-                rows = torch.arange(q0, q0 + BQ)
-                qs = torch.zeros((BQ, D))
-                n = min(BQ, S - q0)
-                qs[:n] = q[b, h, q0:q0 + n].float() * scale
-                m = torch.full((BQ,), NEG_INF)
-                l = torch.zeros(BQ)
-                acc = torch.zeros((BQ, D))
-                q_last = min(q0 + BQ, S) - 1
-                for kb in kv_blocks(q0, S, T, causal=causal,
-                                    window=window):
-                    k0 = kb * BK
-                    ks = torch.zeros((BK, D))
-                    vs = torch.zeros((BK, D))
-                    nk = min(BK, T - k0)
-                    ks[:nk] = k[b, h // G, k0:k0 + nk].float()
-                    vs[:nk] = v[b, h // G, k0:k0 + nk].float()
-                    s = qs @ ks.T
-                    edge = (k0 + BK > T or (causal and k0 + BK - 1 > q0) or
-                            (window is not None and k0 <= q_last - window))
-                    ok = torch.ones((BQ, BK), dtype=torch.bool)
-                    if edge:
-                        keys = torch.arange(k0, k0 + BK)[None, :]
-                        ok = keys < T
-                        if causal:
-                            ok = ok & (rows[:, None] >= keys)
-                        if window is not None:
-                            ok = ok & (keys > rows[:, None] - window)
-                        s = torch.where(ok, s, NEG_INF)
-                    m_new = torch.maximum(m, s.max(dim=1).values)
-                    alpha = torch.exp(m - m_new)
-                    p = torch.where(ok, torch.exp(s - m_new[:, None]), 0.0)
-                    l = l * alpha + p.sum(dim=1)
-                    acc = acc * alpha[:, None] + p @ vs
-                    m = m_new
-                den = torch.clamp(l, min=1e-30)[:, None]
-                out[b, h, q0:q0 + n] = (acc / den)[:n]
+    for b, h0, q0, BQ in ctas(B, H, KH, S):
+        cta = tiles(q0, min(q0 + BQ, S) - 1, T, causal=causal, window=window)
+        kf, vf = k[b, h0 // G].float(), v[b, h0 // G].float()
+        for w in range(NW):
+            h, qw0 = warp_rows(h0, q0, BQ, w)
+            assert h // G == h0 // G            # one kv head per CTA
+            qw_last = min(qw0 + WROWS, S) - 1
+            n = qw_last - qw0 + 1
+            if n <= 0:
+                continue
+            mine = tiles(qw0, qw_last, T, causal=causal, window=window)
+            assert set(mine) <= set(cta)
+            rows = torch.arange(qw0, qw0 + WROWS)
+            qs = torch.zeros((WROWS, D))
+            qs[:n] = q[b, h, qw0:qw0 + n].float() * c
+            m = torch.full((WROWS,), NEG_INF)
+            l = torch.zeros(WROWS)
+            acc = torch.zeros((WROWS, D))
+            for kb in mine:
+                k0 = kb * BK
+                ks, vs = torch.zeros((BK, D)), torch.zeros((BK, D))
+                nk = min(BK, T - k0)
+                ks[:nk], vs[:nk] = kf[k0:k0 + nk], vf[k0:k0 + nk]
+                s = qs @ ks.T
+                edge = (k0 + BK > T or (causal and k0 + BK - 1 > qw0) or
+                        (window is not None and k0 <= qw_last - window))
+                ok = torch.ones((WROWS, BK), dtype=torch.bool)
+                if edge:
+                    keys = torch.arange(k0, k0 + BK)[None, :]
+                    ok = keys < T
+                    if causal:
+                        ok = ok & (rows[:, None] >= keys)
+                    if window is not None:
+                        ok = ok & (keys > rows[:, None] - window)
+                    s = torch.where(ok, s, NEG_INF)
+                m_new = torch.maximum(m, s.max(dim=1).values)
+                alpha = ex2(m - m_new)
+                p = torch.where(ok, ex2(s - m_new[:, None]), 0.0)
+                l = l * alpha + p.sum(dim=1)
+                acc = acc * alpha[:, None] + p @ vs
+                m = m_new
+            den = torch.clamp(l, min=1e-30)[:, None]
+            out[b, h, qw0:qw0 + n] = (acc / den)[:n]
     return out.to(q.dtype)
 
 
@@ -364,24 +412,98 @@ def test_tma_ready_strides():
         one[:, :1])[1] == 8
 
 
+def test_async_copy_ready_strides():
+    """The CUDA-core kernel's rows are read in 16-byte pieces: a tensor
+    whose base or a (batch, head, sequence) stride is not a multiple of 16
+    bytes is cloned first (on the card)."""
+    for dtype, D in ((torch.float32, 64), (torch.float32, 16),
+                     (torch.bfloat16, 16), (torch.bfloat16, 32)):
+        x = torch.zeros((2, 300, 4, D), dtype=dtype)        # [B, S, H, D]
+        assert tkernel.async_copy_ready(x.transpose(1, 2))
+        assert tkernel.async_copy_ready(torch.zeros((1, 4, 9, D), dtype=dtype))
+        n = 16 // x.element_size()
+        padded = torch.zeros((1, 4, 9, D + n // 2), dtype=dtype)[..., :D]
+        assert not tkernel.async_copy_ready(padded)       # rows of D + n/2
+        assert tkernel.async_copy_ready(
+            torch.zeros((1, 4, 9, D + n), dtype=dtype)[..., :D])  # + 16 B
+        flat = torch.zeros(4 * 9 * D + n, dtype=dtype)
+        assert not tkernel.async_copy_ready(flat[1:1 + 4 * 9 * D].view(
+            1, 4, 9, D))                                  # 2 or 4 B offset
+        assert tkernel.async_copy_ready(flat[n:n + 4 * 9 * D].view(
+            1, 4, 9, D))                                  # 16 B offset
+    # a dim of length 1 may have any stride
+    one = torch.zeros((4, 1, 9, 16)).transpose(0, 1)
+    assert tkernel.async_copy_ready(one[:, :1])
+    # an odd sequence stride of a single row does not matter either
+    assert tkernel.async_copy_ready(torch.zeros((1, 2, 1, 20))[..., :16])
+
+
 @pytest.mark.parametrize("S,T", [(100, 100), (512, 512), (77, 130),
                                  (256, 64), (1, 1)])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 64), (False, 33),
                                            (True, 1), (False, 0)])
 def test_skipped_blocks_hold_no_valid_key(S, T, causal, window):
-    """Every key a row may see lies in a visited block, and every block
-    the kernel skips is masked for every row of its query block."""
+    """For every head group G in {1, 2, 4, 8}: every key a row may see lies
+    in a tile its warp computes, a warp's tiles lie in its CTA's (the tiles
+    staged), and the first and last tile of each range hold a key that a
+    row of the warp (of the CTA) may see."""
     mask = key_mask(S, T, causal=causal, window=window).numpy()
-    for q0 in range(0, S, BQ):
-        seen = np.zeros(T, bool)
-        for kb in kv_blocks(q0, S, T, causal=causal, window=window):
-            seen[kb * BK:(kb + 1) * BK] = True
-        assert not (mask[q0:q0 + BQ] & ~seen[None, :]).any()
-        visited = list(kv_blocks(q0, S, T, causal=causal, window=window))
+
+    def check_ends(visited, r0, r1):
         if visited and window != 0:   # neither end of the range is empty
             for kb in (visited[0], visited[-1]):
-                assert mask[q0:q0 + BQ, kb * BK:(kb + 1) * BK].any()
+                assert mask[r0:r1, kb * BK:(kb + 1) * BK].any()
+
+    for G in (1, 2, 4, 8):
+        for _, h0, q0, BQ in ctas(1, G, 1, S):
+            cta = list(tiles(q0, min(q0 + BQ, S) - 1, T, causal=causal,
+                             window=window))
+            check_ends(cta, q0, q0 + BQ)
+            for w in range(NW):
+                _, qw0 = warp_rows(h0, q0, BQ, w)
+                mine = list(tiles(qw0, min(qw0 + WROWS, S) - 1, T,
+                                  causal=causal, window=window))
+                assert set(mine) <= set(cta)
+                seen = np.zeros(T, bool)
+                for kb in mine:
+                    seen[kb * BK:(kb + 1) * BK] = True
+                assert not (mask[qw0:qw0 + WROWS] & ~seen[None, :]).any()
+                check_ends(mine, qw0, qw0 + WROWS)
+
+
+@pytest.mark.parametrize("S", [1, 16, 100, 129, 300])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 6, 7, 16])
+def test_grid_covers_each_row_once(G, S):
+    """The kernel's grid, its CTAs' rows and its lanes' rows (rg + 4 i of
+    warp w) store each (batch, head, query) once, every head of a CTA
+    reads the CTA's kv head, and the query blocks start from the last; G =
+    6, 7 (qwen2's 14 heads over 2) take 2 and 1 heads a CTA, G = 16 two
+    CTAs of 8."""
+    B, KH = 2, 2
+    H = G * KH
+    assert heads_per_cta(G) == {1: 1, 2: 2, 4: 4, 8: 8, 6: 2, 7: 1, 16: 8}[G]
+    stored = np.zeros((B, H, S), int)
+    starts = [q0 for _, _, q0, _ in ctas(B, H, KH, S)]
+    assert starts == sorted(starts, reverse=True)     # longest first
+    for b, h0, q0, BQ in ctas(B, H, KH, S):
+        assert {(h0 + r // BQ) // G for r in range(ROWS)} == {h0 // G}
+        for w in range(NW):
+            h, qw0 = warp_rows(h0, q0, BQ, w)
+            for rg in range(4):           # lanes 8 rg .. 8 rg + 7
+                for i in range(RT):
+                    r = w * WROWS + rg + 4 * i
+                    assert h0 + r // BQ == h and q0 + r % BQ == qw0 + rg + 4 * i
+                    if qw0 + rg + 4 * i < S:
+                        stored[b, h, qw0 + rg + 4 * i] += 1
+    assert (stored == 1).all()
+    # the 8 lanes of a row store its dims once: lane kg, (8 c + kg) VW + e
+    for D in (16, 32, 64, 128):
+        DL = D // 8
+        VW = min(4, DL)
+        dims = sorted((8 * c + kg) * VW + e for kg in range(8)
+                      for c in range(DL // VW) for e in range(VW))
+        assert dims == list(range(D))
 
 
 def test_rows_without_keys_are_zero_and_strided_inputs_agree():
@@ -444,7 +566,16 @@ def test_cuda_kernel_matches_plain():
             (1, 16, 8, 1000, 1000, 64, True, None, "bfloat16"),
             (2, 4, 2, 77, 130, 128, False, None, "bfloat16"),
             (1, 4, 2, 700, 700, 128, True, 0, "bfloat16"),
-            (1, 2, 1, 64, 64, 32, True, None, "bfloat16")] + [
+            (1, 2, 1, 64, 64, 32, True, None, "bfloat16"),
+            # the CUDA-core kernel: the training shape; head groups of 4
+            # and 8 (one CTA a group) and of 7 (a CTA a head); T != S
+            # without a causal mask; a window at D = 128
+            (8, 16, 8, 512, 512, 64, True, None, "float32"),
+            (1, 16, 4, 300, 300, 64, True, None, "float32"),
+            (2, 16, 2, 200, 200, 32, True, None, "float32"),
+            (1, 14, 2, 150, 150, 64, True, None, "float32"),
+            (2, 4, 2, 100, 333, 64, False, None, "float32"),
+            (1, 8, 4, 400, 400, 128, True, 77, "float32")] + [
             # no key at all: zeros and no launch, whichever kernel
             (1, 4, 2, 100, 0, D, causal, None, dtype)
             for D, dtype in ((64, "bfloat16"), (128, "bfloat16"),
@@ -481,6 +612,24 @@ def test_cuda_kernel_matches_plain():
     assert out.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(out, tkernel.flash_attention(q, k, v),
                                rtol=0, atol=0)
+    # f32 rows of 260 bytes and a base 4 bytes off: the CUDA-core kernel's
+    # 16-byte copies take neither, so it gets a copy (the same result); two
+    # calls on the same inputs are bit-identical
+    q, k, v = (t.cuda() for t in as_torch(inputs(
+        (1, 16, 8, 300, 300, 64), seed=4), "float32"))
+    padded = torch.zeros((1, 16, 300, 65), device="cuda")
+    padded[..., :64] = q
+    flat = torch.zeros(k.numel() + 1, device="cuda")
+    flat[1:] = k.reshape(-1)
+    qp, kp = padded[..., :64], flat[1:].view(k.shape)
+    assert not tkernel.async_copy_ready(qp)
+    assert not tkernel.async_copy_ready(kp)
+    before = tkernel.flash_attention.launches
+    out = tkernel.flash_attention(qp, kp, v)
+    assert tkernel.flash_attention.launches == before + 1
+    first = tkernel.flash_attention(q, k, v)
+    torch.testing.assert_close(out, first, rtol=0, atol=0)
+    assert torch.equal(first, tkernel.flash_attention(q, k, v))
     # bf16 rows of 136 bytes: no tensor map takes them, so the sm90 kernel
     # gets a copy (the same kernel, the same result)
     q, k, v = (t.cuda() for t in as_torch(inputs(
