@@ -123,7 +123,12 @@ on failure:
      p_hi and p_lo); the CUDA-core kernel at the float32 training step's
      shape (B=8, S=512) against its plain version, twice bit-identical,
      timed beside the plain version, SDPA's float32 kernel and its float32
-     bound;
+     bound; the families' shapes in both dtypes against the plain version
+     and twice bit-identical (gemma3's 32 heads over 16 at D=128 with its
+     window 1,024, qwen1.5's G=1 at D=128, seamless's cross-attention
+     S=1 and 512 against T=1,500, not causal); the sm90 kernel at gemma3's
+     global and windowed layers (B=1, S=32,768, D=128): row windows within
+     bf16 rounding, device ms beside the bound and SDPA;
  11. the prefill path at full width: granite-moe-1b-a400m (24 layers,
      random float32 weights from a seed) through `make_prefill_step` at
      B=1, S=32,768, bfloat16 activations, 2 timed prefills after a short
@@ -168,7 +173,35 @@ on failure:
      step 6, resumed to step 8 beside an uninterrupted run: the restored
      state bit-identical to the saved one, the first resumed loss
      bit-identical, the later ones within 1e-4; checkpoint bytes and the
-     ms of save and restore.
+     ms of save and restore;
+ 18. gemma3-27b at full width and depth (62 layers: 10 groups of 5 local,
+     window 1,024, + 1 global, and 2 local; 27 B bf16 params drawn on the
+     card, the draw's peak memory printed) through `make_prefill_step` at
+     B=1, S=32,768: 62 sm90 launches a prefill, none of the CUDA-core
+     kernel, finite logits, ms, tokens/s, peak memory, a profiled
+     prefill; the first local layer's projections against a plain
+     computation with its window;
+ 19. the same weights behind `Engine(slots=4, max_len=128)`: 8 requests,
+     no flash launch at decode, ms per decode step, a profiled step;
+ 20. gemma3 at 8 layers (one group and a tail of 2), float32: a forward at
+     S=1,152 (8 CUDA-core launches, 7 with the window) and the same
+     tokens decoded one by one across every local ring's wrap, each step
+     within 2e-3 of the forward; a local and the global block
+     teacher-forced, card against the CPU within 1e-5;
+ 21. qwen1.5-32b at 4 layers (G=1, D=128, QKV bias): a bf16 prefill at
+     S=8,192 (4 sm90 launches), layer 1's block with random biases card
+     against the CPU at S=512, float32;
+ 22. internvl2-1b at full depth: a bf16 prefill of 256 patches + 1,024
+     tokens (24 sm90 launches at G=7), float32 logits card against the
+     CPU, 3 float32 training steps on random patches (48 CUDA-core
+     launches a step, every leaf a gradient, the projector's included),
+     one launcher step on its zero patches (launches, loss; the
+     non-finite gradients that batch gives at 24 layers counted);
+ 23. seamless-m4t-large-v2 at full depth (24 + 24 layers): a bf16 prefill
+     of 4,096 frames and 1,024 tokens (72 sm90 launches), 64 float32
+     decode steps against `decode_fwd` within 2e-3 (24 CUDA-core
+     cross-attention launches a step at S=1, T=4,096), 3 float32 steps
+     through the launcher (144 CUDA-core launches a step).
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is
@@ -179,6 +212,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -257,6 +291,68 @@ FLASH_RANDOM_WINDOWS = 12
 #: order.
 FLASH_BF16_ROUNDING = (1e-5, 2.0 ** -8)
 PREFILL_REF_B, PREFILL_REF_S = 2, 256   # the prefill's card-vs-CPU check
+#: The families' attention shapes (what, B, H, KH, S, T, D, causal,
+#: window), each in float32 (the CUDA-core kernel) and bfloat16 (the sm90
+#: kernel) against the plain version and twice bit-identical: gemma3's
+#: heads (32 over 16, D=128) with its window at S=4,096; qwen1.5's 40 heads
+#: over 40 (G=1) at D=128; seamless's cross-attention (16 over 16, D=64),
+#: one query row and 512 against 1,500 memory rows, not causal.  Then the
+#: shapes the phases' paths give the kernel (phases 20-23): gemma3 at 8
+#: layers over GEMMA_DECODE_S (windowed and global); qwen1.5's prefill at
+#: QWEN_PREFILL_S; internvl2's prefill (14 heads over 2, G=7, 256 patches
+#: + 1,024 text rows) and its training rows (256 + 512); seamless's
+#: prefill (encoder, decoder self, cross at 1,024 against 4,096 frames),
+#: its decode (one row against 4,096) and its training (512 rows).
+FLASH_FAMILY_CASES = (("gemma3 local", 1, 32, 16, 4096, 4096, 128, True, 1024),
+                      ("qwen1.5", 1, 40, 40, 2048, 2048, 128, True, None),
+                      ("cross S=1", 2, 16, 16, 1, 1500, 64, False, None),
+                      ("cross S=512", 2, 16, 16, 512, 1500, 64, False,
+                       None),
+                      ("gemma3 8-layer local", 1, 32, 16, 1152, 1152, 128,
+                       True, 1024),
+                      ("gemma3 8-layer global", 1, 32, 16, 1152, 1152, 128,
+                       True, None),
+                      ("qwen1.5 prefill", 1, 40, 40, 8192, 8192, 128, True,
+                       None),
+                      ("internvl2 prefill", 1, 14, 2, 1280, 1280, 64, True,
+                       None),
+                      ("internvl2 train", 4, 14, 2, 768, 768, 64, True,
+                       None),
+                      ("seamless encoder", 1, 16, 16, 4096, 4096, 64, False,
+                       None),
+                      ("seamless decoder", 1, 16, 16, 1024, 1024, 64, True,
+                       None),
+                      ("seamless cross", 1, 16, 16, 1024, 4096, 64, False,
+                       None),
+                      ("seamless cross decode", 1, 16, 16, 1, 4096, 64,
+                       False, None),
+                      ("seamless train encoder", 2, 16, 16, 512, 512, 64,
+                       False, None),
+                      ("seamless train decoder", 2, 16, 16, 512, 512, 64,
+                       True, None))
+#: gemma3's attention at the prefill length, timed beside its bound and
+#: SDPA: (B, H, KH, S, D), causal, its global layer and its windowed one.
+GEMMA_FLASH_SHAPE, GEMMA_WINDOW = (1, 32, 16, 32_768, 128), 1024
+#: Phases 18-23, the dense family's rest, the VLM and the encoder-decoder
+#: at full width: gemma3-27b at full depth in bf16 (prefill at
+#: prefill_32k's length, then the Engine as phase_serve drives it); gemma3
+#: at 8 layers (one 5:1 group and a tail of 2) in float32, forward and
+#: decode over GEMMA_DECODE_S tokens (every local ring wraps at the window
+#: 1,024); qwen1.5-32b at 4 layers; internvl2-1b and seamless at full
+#: depth.
+GEMMA_ARCH, QWEN_ARCH = "gemma3-27b", "qwen1.5-32b"
+VLM_ARCH, ENCDEC_ARCH = "internvl2-1b", "seamless-m4t-large-v2"
+GEMMA_WINDOW_LAYERS, GEMMA_DECODE_S = 8, 1152
+DECODE_TOL = 2e-3               # decode against the forward (atol = rtol)
+QWEN_LAYERS, QWEN_PREFILL_S, QWEN_REF_S = 4, 8192, 512
+VLM_TEXT_S, VLM_REF_TEXT_S = 1024, 64
+ENCDEC_FRAMES, ENCDEC_TGT, ENCDEC_DECODE_STEPS = 4096, 1024, 64
+FAMILY_TRAIN_STEPS, FAMILY_TRAIN_S = 3, 512
+VLM_TRAIN_B, ENCDEC_TRAIN_B = 4, 2
+#: Logits card against CPU at full depth (24 layers), float32: 1e-4 +
+#: 1e-4 |cpu| (phase_serve_ref's LOGIT_ATOL, and as much again relative,
+#: for float32 rounding carried through six times its layers).
+FAMILY_LOGIT_RTOL = 1e-4
 #: Training (phases 14-17): granite at full width through the launcher,
 #: train_4k's batch of 256 x 4,096 cut to 8 x 512 (and its bf16 run to
 #: 4 x 512); the card-vs-CPU step at 4 layers, the resume at 2.
@@ -2853,10 +2949,10 @@ def flash_inputs(gen, B, H, KH, S, D, dtype, dev):
                  for shape in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D)))
 
 
-def flash_rows_ref(q, k, v, r0: int, rows: int):
-    """Query rows r0 .. r0 + rows - 1 of causal attention, computed plainly
-    in float32 over the keys they see (the plain version's scores do not
-    fit at the prefill length)."""
+def flash_rows_ref(q, k, v, r0: int, rows: int, window=None):
+    """Query rows r0 .. r0 + rows - 1 of causal attention (with a sliding
+    ``window`` when given), computed plainly in float32 over the keys they
+    see (the plain version's scores do not fit at the prefill length)."""
     import torch
     B, H, S, D = q.shape
     G = H // k.shape[1]
@@ -2865,7 +2961,11 @@ def flash_rows_ref(q, k, v, r0: int, rows: int):
     kk = k[:, :, :r1].repeat_interleave(G, dim=1).float()
     s = torch.einsum("bhsd,bhtd->bhst", qt, kk) / math.sqrt(D)
     qi = torch.arange(r0, r1, device=q.device)[:, None]
-    s = s.masked_fill(torch.arange(r1, device=q.device)[None, :] > qi, -1e30)
+    kj = torch.arange(r1, device=q.device)[None, :]
+    hidden = kj > qi
+    if window is not None:
+        hidden |= kj <= qi - window
+    s = s.masked_fill(hidden, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p,
                         v[:, :, :r1].repeat_interleave(G, dim=1).float())
@@ -2886,16 +2986,18 @@ def flash_windows(S: int):
     return FLASH_WINDOWS + tuple((int(r), 64) for r in starts)
 
 
-def check_windows(out, q, k, v, what: str, tol=FLASH_BF16_ROUNDING):
-    """Hold the rows of `flash_windows` of a causal ``out`` to a plain
-    float32 computation within ``tol`` = (atol, rtol) (for bf16, bf16
-    rounding); returns (max abs error, largest share of the gate), and the
-    windows."""
+def check_windows(out, q, k, v, what: str, tol=FLASH_BF16_ROUNDING,
+                  window=None):
+    """Hold the rows of `flash_windows` of a causal ``out`` (with a sliding
+    ``window`` when given) to a plain float32 computation within ``tol`` =
+    (atol, rtol) (for bf16, bf16 rounding); returns (max abs error,
+    largest share of the gate), and the windows."""
     atol, rtol = tol
     windows = flash_windows(q.shape[2])
     rows_err, rows_use = 0.0, 0.0
     for r0, n in windows:
-        got, ref = out[:, :, r0:r0 + n].float(), flash_rows_ref(q, k, v, r0, n)
+        got = out[:, :, r0:r0 + n].float()
+        ref = flash_rows_ref(q, k, v, r0, n, window)
         err = (got - ref).abs()
         rows_err = max(rows_err, float(err.max()))
         rows_use = max(rows_use, float((err / (atol + rtol * ref.abs()))
@@ -2994,6 +3096,9 @@ def phase_flash(dev, peaks):
     del q32, k32, v32
     train = flash_train(gen, dev, peaks, f32_tol)
     errs.append(train.pop("pair"))
+    families = flash_families(gen, dev)
+    errs.extend(families.pop("pairs"))
+    families.update(flash_gemma(gen, dev, peaks))
     q4, k4, v4 = (t[:, :, :FLASH_PLAIN_S] for t in (q, k, v))
     ms4 = device_ms(lambda: K.flash_attention(q4, k4, v4),
                     match="flash_attention_sm90_kernel<", n=5, warm=1)
@@ -3009,7 +3114,7 @@ def phase_flash(dev, peaks):
         max_abs_err=max_abs_err(errs), ms=ms, plain_ms=plain4,
         plain_S=FLASH_PLAIN_S, ms_at_plain_S=ms4, simt_f32_ms=simt_ms,
         library_ms=lib_ms, library_f32_ms=lib32_ms, bytes=nbytes, ops=nops,
-        **train)
+        **train, **families)
     # The operands are bf16: both products at the tensor cores' bf16 rate
     # (QK^T of bf16 operands is exact in float32 accumulation; P.V at that
     # rate takes P in bf16, as SDPA does), the least the card could take.
@@ -3096,33 +3201,160 @@ def flash_train(gen, dev, peaks, tol):
                 pair=(out, ref))
 
 
+def flash_families(gen, dev):
+    """FLASH_FAMILY_CASES through the kernel each dtype selects (the
+    counters must show it), each against the plain version within
+    FLASH_TOL, bfloat16 also within bf16 rounding of the float32 plain
+    result, and each called twice with bit-identical outputs.  Returns the
+    largest errors by case and the (out, plain) pairs."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    atol, rtol = FLASH_BF16_ROUNDING
+    pairs, worst = [], {}
+    for what, B, H, KH, S, T, D, causal, window in FLASH_FAMILY_CASES:
+        for name, tol in FLASH_TOL.items():
+            dtype = getattr(torch, name)
+            q = torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn((B, KH, T, D), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            before = (K.flash_attention.launches,
+                      K.flash_attention.launches_sm90)
+            out = K.flash_attention(q, k, v, causal=causal, window=window)
+            again = K.flash_attention(q, k, v, causal=causal, window=window)
+            ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            sm90 = K.uses_sm90(dtype, D)
+            check((K.flash_attention.launches,
+                   K.flash_attention.launches_sm90) ==
+                  (before[0] + 2 * (not sm90), before[1] + 2 * sm90),
+                  f"flash_attention, {what} {name}: not two launches of the "
+                  f"{'sm90' if sm90 else 'CUDA-core'} kernel")
+            check(bits_equal(out, again),
+                  f"flash_attention, {what} {name}: two calls differ")
+            err = max_abs_err([(out, ref)])
+            shape = (B, H, KH, S, T, D, causal, window)
+            check(within(out, ref, tol, tol),
+                  f"flash_attention, {what} {shape} {name}: max abs "
+                  f"{err:.3e} from the plain version (tolerance {tol})")
+            if dtype == torch.bfloat16:
+                ref32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                            causal=causal, window=window)
+                check(within(out, ref32, atol, rtol),
+                      f"flash_attention, {what} bf16: off the float32 plain "
+                      f"result by more than bf16 rounding "
+                      f"({max_abs_err([(out, ref32)]):.3e})")
+            pairs.append((out, ref))
+            worst[f"{what},{name}"] = err
+    log("flash, the families' shapes (FLASH_FAMILY_CASES: gemma3 window "
+        "1024 at D=128, qwen1.5 G=1 at D=128, seamless cross-attention S=1 "
+        "and 512 against T=1,500, and the shapes of phases 20-23's paths), "
+        "max abs error against the plain version, two calls bit-identical: "
+        + json.dumps({k: f"{v:.3e}" for k, v in worst.items()}))
+    return {"pairs": pairs}
+
+
+def flash_gemma(gen, dev, peaks):
+    """The sm90 kernel at gemma3's prefill shape (GEMMA_FLASH_SHAPE, bf16),
+    its global layer (causal) and its windowed one (GEMMA_WINDOW): the rows
+    of `flash_windows` against a plain computation within bf16 rounding,
+    device ms beside the bound (the pairs this input's masks keep, both
+    products at the bf16 tensor-core rate) and beside SDPA (global:
+    is_causal, enable_gqa; windowed: an explicit boolean mask, kv heads
+    repeated, the memory-efficient backend pinned, the only one that takes
+    a mask without materialising the scores; where it does not run, its
+    time is None and the reason logged).  Returns the row's `gemma_*`
+    keys."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import key_mask
+    B, H, KH, S, D = GEMMA_FLASH_SHAPE
+    q, k, v = flash_inputs(gen, B, H, KH, S, D, torch.bfloat16, dev)
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KH * S * D)
+    out = {}
+    for name, window in (("global", None), ("window", GEMMA_WINDOW)):
+        o = K.flash_attention(q, k, v, window=window)
+        err, use, windows = check_windows(o, q, k, v, f"gemma3's {name} "
+                                          f"layer shape", window=window)
+        del o
+        ms = device_ms(lambda: K.flash_attention(q, k, v, window=window),
+                       match="flash_attention_sm90_kernel<", n=5, warm=2)
+        W = S if window is None else window
+        pairs = W * (W + 1) // 2 + (S - W) * W
+        nops = 4 * B * H * D * pairs
+        bound, by = bound_of(nbytes, nops, peaks, "bfloat16")
+        if window is None:
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), n=5, warm=2)
+            lib_how = "is_causal, enable_gqa"
+        else:
+            lib_how = ("boolean mask, kv heads repeated, memory-efficient "
+                       "backend")
+            try:
+                kr, vr = (t.repeat_interleave(H // KH, dim=1)
+                          for t in (k, v))
+                mask = key_mask(S, S, causal=True, window=window, device=dev)
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    lib = device_ms(lambda: F.scaled_dot_product_attention(
+                        q, kr, vr, attn_mask=mask), n=5, warm=2)
+            except (torch.OutOfMemoryError, RuntimeError) as e:
+                lib = None
+                lib_how += f": did not run ({str(e)[:120]})"
+            kr = vr = mask = None
+            torch.cuda.empty_cache()
+        out.update({f"gemma_{name}_ms": ms, f"gemma_{name}_bound_ms": bound,
+                    f"gemma_{name}_library_ms": lib})
+        log(f"kernel flash_attention (sm90) at gemma3's {name} layer "
+            f"(B={B}, H={H}, KH={KH}, S={S}, D={D}, bf16, causal, window "
+            f"{window}): {ms:.4f} ms on the card ({nops / ms / 1e9:.2f} "
+            f"TFLOP/s), bound {bound:.4f} ms by {by} ({nops} flops over "
+            f"{pairs} (query, key) pairs at the bf16 tensor-core rate, "
+            f"{nbytes} B); SDPA ({lib_how}) "
+            f"{'not measured' if lib is None else f'{lib:.4f} ms'}; "
+            f"{len(windows)} row windows within {err:.3e} of a plain "
+            f"computation, at most {use:.3f} of the bf16 rounding gate")
+    return out
+
+
+def first_layer(params):
+    """The first block's params of a decoder stack: layer 0 of "layers",
+    or the first local layer of the local/global pattern."""
+    from repro_torch.models.transformer import layer
+    stack = params["stack"]
+    if "layers" in stack:
+        return layer(stack["layers"], 0)
+    return layer(layer(stack["local"], 0), 0)
+
+
 def phase_flash_projections(cfg, params, toks):
     """The rows of `flash_windows` held to a plain computation within
     FLASH_BF16_ROUNDING on the q, k and v that the first layer of ``cfg``
     projects (norm, projections, RoPE) from ``toks`` in bfloat16, passed
-    as the attention layer passes them."""
+    as the attention layer passes them, with that layer's window."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.models.attention import _project_qkv
     from repro_torch.models.common import embed, norm
-    from repro_torch.models.transformer import layer
-    check(cfg.window is None, "the row windows' plain computation is causal "
-          "without a window")
+    window = cfg.window              # the first layer's (a local one's)
     with torch.inference_mode():
         x = embed(cfg, params["embed"], toks, torch.bfloat16)
-        p0 = layer(params["stack"]["layers"], 0)
+        p0 = first_layer(params)
         pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
         q, k, v = (t.contiguous().transpose(1, 2) for t in _project_qkv(
             cfg, p0["attn"], norm(cfg, x, p0.get("ln1")), pos))
         before = K.flash_attention.launches_sm90
-        out = K.flash_attention(q, k, v)
+        out = K.flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
         check(K.flash_attention.launches_sm90 == before + 1,
               "layer 1's projections did not go through the sm90 kernel")
         err, use, windows = check_windows(
-            out, q, k, v, f"{cfg.name} layer 1's projections")
+            out, q, k, v, f"{cfg.name} layer 1's projections",
+            window=window)
     log(f"flash_attention (sm90) on {cfg.name} layer 1's q, k, v at "
-        f"S={toks.shape[1]} (|q| max {float(q.abs().max()):.3f}, |k| max "
+        f"S={toks.shape[1]}, window {window} (|q| max "
+        f"{float(q.abs().max()):.3f}, |k| max "
         f"{float(k.abs().max()):.3f}): {len(windows)} row windows within "
         f"{err:.3e} of a plain computation, at most {use:.3f} of the bf16 "
         f"rounding gate")
@@ -3529,7 +3761,7 @@ def model_counts():
 
 #: Kernel-name fragments by which a training step's device time is
 #: grouped (first match wins; the rest is "other").
-STEP_GROUPS = (("gemm", ("gemm", "Kernel2<cutlass")),
+STEP_GROUPS = (("gemm", ("gemm", "Kernel2<cutlass", "nvjet")),
                ("flash", ("flash_attention",)),
                ("gate", ("bp_topk_route",)),
                ("index", ("index", "gather", "scatter")),
@@ -4140,6 +4372,552 @@ def phase_train_resume(dev):
         f"{', '.join(f'{x:.5f}' for x in full)}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-23: the dense family's rest, the VLM and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+def family_model(arch: str, dev, *, n_layers=None, dtype: str = "bfloat16",
+                 seed: int = 0):
+    """(config, params) of ``arch`` at full width (depth cut to
+    ``n_layers`` when given), weights drawn on ``dev`` in ``dtype`` from
+    ``seed``; logs the draw's time and its peak device memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, split_tree
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, _ = split_tree(get_model(cfg).init(
+        gen, dtype=getattr(torch, dtype)))
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: {cfg.n_layers} layers at full width (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, head dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+        f"{tree_numel(params):,} {dtype} params drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; peak device memory during the "
+        f"draw {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, held "
+        f"after it {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, params
+
+
+def reset_flash():
+    from repro_torch.kernels.flash_attention import kernel as FK
+    FK.flash_attention.launches = 0
+    FK.flash_attention.launches_sm90 = 0
+
+
+def flash_launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as FK
+    return {"sm90": FK.flash_attention.launches_sm90,
+            "simt": FK.flash_attention.launches}
+
+
+def timed_prefills(step, params, batch, warm_batch, n: int = 2):
+    """A warm-up prefill, then ``n`` timed ones with the flash counters set
+    to 0 just before and read just after: (logits, wall ms each,
+    launches, peak GiB of the timed ones)."""
+    import torch
+    step(params, warm_batch, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, batch, None)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = flash_launches()
+    return (logits, walls, launches,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def check_prefill(cfg, logits, launches, want_sm90: int, what: str):
+    import torch
+    check(launches == {"sm90": want_sm90, "simt": 0},
+          f"{what}: flash launches {launches} in 2 prefills, expected "
+          f"{want_sm90} of the sm90 kernel and none of the CUDA-core one")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab) and
+          logits.dtype == torch.bfloat16 and
+          bool(torch.isfinite(logits).all()),
+          f"{what}: logits {tuple(logits.shape)} {logits.dtype} not finite "
+          f"or misshapen")
+
+
+def phase_gemma3_prefill(dev):
+    """gemma3-27b at full width and full depth (62 layers: 10 groups of 5
+    local + 1 global, a tail of 2 local), 27 B bf16 params drawn on the
+    card, through `make_prefill_step` at B=1, S=32,768 (prefill_32k's
+    length), bf16: a warm-up at S=PREFILL_WARM_S, 2 timed prefills, each
+    62 sm90 launches (52 of them with the window 1,024) and no CUDA-core
+    one, finite [1, 1, 262,144] logits; a profiled prefill; then
+    `phase_flash_projections` on the first local layer's q, k, v (row
+    windows, with its window).  Returns (cfg, params, sm90 launches); the
+    weights stay for `phase_gemma3_serve`."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import _pattern
+    from repro_torch.runtime.step import make_prefill_step
+    t0 = time.perf_counter()
+    cfg, params = family_model(GEMMA_ARCH, dev)
+    check(_pattern(cfg) == (10, 5, 2) and cfg.window == GEMMA_WINDOW,
+          f"gemma3's pattern {_pattern(cfg)}, window {cfg.window}")
+    S = SHAPES["prefill_32k"].seq_len
+    step = make_prefill_step(RunConfig(cfg, SHAPES["prefill_32k"]))
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)), device=dev)
+    warm = toks[:, :PREFILL_WARM_S]
+    logits, walls, launches, peak = timed_prefills(
+        step, params, {"tokens": toks}, {"tokens": warm})
+    check_prefill(cfg, logits, launches, 2 * cfg.n_layers, "gemma3 prefill")
+    med = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            again, _, _ = get_model(cfg).logits(
+                params, {"tokens": toks}, activ_dtype=torch.bfloat16,
+                remat="none", last_only=True)
+        torch.cuda.synchronize()
+    log(f"gemma3 prefill: B=1, S={S}, bf16, {cfg.n_layers} layers, 2 "
+        f"prefills {', '.join(f'{w:.4f}' for w in walls)} ms: {med:.4f} ms "
+        f"per prefill, {S / med * 1e3:.2f} prefill tokens/s; launches "
+        f"{launches} (sm90, CUDA-core); peak device memory {peak:.2f} GiB "
+        f"({time.perf_counter() - t0:.1f} s with the draw); profiled "
+        f"prefill: {profile_summary(prof, med, top_n=6)}; its logits within "
+        f"{max_abs_err([(again, logits)]):.3e} of the step's")
+    phase_flash_projections(cfg, params, toks)
+    return cfg, params, launches["sm90"]
+
+
+def phase_gemma3_serve(dev, cfg, params):
+    """The Engine (`Engine(slots=4, max_len=128)`, float32 activations, as
+    the reference's) at gemma3-27b's full depth on the bf16 weights of
+    `phase_gemma3_prefill`: 8 requests drawn as `phase_serve` draws them;
+    every request finishes with valid tokens, and no flash launch (decode
+    attends through the einsum `sdpa`, as the reference does).  Prints ms
+    per decode step and a profiled step's activities.  Returns the decode
+    steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import Engine
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                 device=dev)
+    rng = np.random.default_rng(0)
+    for _ in range(SERVE_REQUESTS):
+        plen = int(rng.integers(4, 16))
+        eng.submit(list(rng.integers(0, cfg.vocab, plen)), SERVE_MAX_NEW)
+    torch.cuda.synchronize()
+    reset_flash()
+    t1 = time.perf_counter()
+    finished = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches, steps = flash_launches(), eng.steps
+    check(launches == {"sm90": 0, "simt": 0},
+          f"gemma3 serve: flash launches {launches} at decode, expected none")
+    check(sorted(finished) == list(range(SERVE_REQUESTS)),
+          f"gemma3 serve: served {sorted(finished)} of {SERVE_REQUESTS}")
+    outs = [finished[r].out for r in sorted(finished)]
+    check(all(len(o) == SERVE_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
+              for o in outs), f"gemma3 serve: malformed outputs {outs}")
+    toks = eng._last_tok.copy()
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        logits = eng._step(toks)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t2) * 1e3)
+    check(tuple(logits.shape) == (SERVE_SLOTS, cfg.vocab) and
+          bool(torch.isfinite(logits).all()),
+          "gemma3 serve: non-finite or misshapen logits")
+    med = statistics.median(step_ms)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._step(toks)
+        torch.cuda.synchronize()
+    n_act = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_tok = sum(len(o) for o in outs)
+    log(f"gemma3 serve: {len(finished)} requests, {n_tok} tokens, {steps} "
+        f"decode steps (prefill included) in {wall:.3f} s: "
+        f"{wall / steps * 1e3:.4f} ms per decode step (unprofiled steps "
+        f"alone {', '.join(f'{x:.4f}' for x in step_ms)} ms), "
+        f"{n_tok / wall:.2f} generated tokens/s; {n_act} CUDA activities "
+        f"per step ({n_act / cfg.n_layers:.2f} per layer); profiled step: "
+        f"{profile_summary(prof, med)}; flash launches 0; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for rid in sorted(finished)[:2]:
+        log(f"  req {rid}: out={finished[rid].out}")
+    return steps
+
+
+def block_against_cpu(cfg, p, x, *, window, what: str) -> float:
+    """`block_fwd` of one layer's params ``p`` on the card and on the CPU
+    from the same input ``x`` (teacher-forced), float32: the outputs
+    within LAYER_RTOL of their largest magnitude.  Returns that share."""
+    import torch
+    from repro_torch.models.transformer import block_fwd
+    cpu = torch.device("cpu")
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)[None].expand(x.shape[0], S)
+    with torch.inference_mode():
+        yd, _, _ = block_fwd(cfg, p, x, pos, window=window)
+        yc, _, _ = block_fwd(cfg, to_device_tree(p, cpu), x.cpu(),
+                             pos.cpu(), window=window)
+    scale = float(yc.abs().max())
+    d = max_abs_err([(yd.cpu(), yc)]) / scale
+    check(d <= LAYER_RTOL, f"{what}: card and CPU differ by {d:.3e} of the "
+          f"output's largest magnitude {scale:.3f} (gate {LAYER_RTOL})")
+    return d
+
+
+def phase_gemma3_window(dev):
+    """gemma3 at full width, depth cut to GEMMA_WINDOW_LAYERS (one 5:1
+    group and a tail of 2), float32 weights: the forward at
+    S=GEMMA_DECODE_S > the window (the CUDA-core kernel at D=128, window
+    1,024 in 7 of its 8 launches), then the same tokens decoded one by one
+    (every local ring wraps at 1,024): each step's logits within
+    DECODE_TOL of the forward's; then the first local block and the global
+    block, teacher-forced on the card's hidden state, card against the
+    CPU (`block_against_cpu`).  Returns the CUDA-core launches of the
+    forward."""
+    import numpy as np
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.models.common import embed
+    from repro_torch.models.transformer import _pattern, block_fwd, layer
+    t0 = time.perf_counter()
+    cfg, params = family_model(GEMMA_ARCH, dev,
+                               n_layers=GEMMA_WINDOW_LAYERS,
+                               dtype="float32", seed=1)
+    check(_pattern(cfg) == (1, 5, 2), f"pattern {_pattern(cfg)}")
+    S, f32 = GEMMA_DECODE_S, torch.float32
+    api = get_model(cfg)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, S)), device=dev)
+    reset_flash()
+    with torch.inference_mode():
+        full, _, _ = api.logits(params, {"tokens": toks}, activ_dtype=f32)
+        torch.cuda.synchronize()
+        fwd = flash_launches()
+        check(fwd == {"sm90": 0, "simt": cfg.n_layers},
+              f"gemma3 window forward: flash launches {fwd}, expected "
+              f"{cfg.n_layers} of the CUDA-core kernel")
+        caches = api.init_decode(1, S, f32, device=dev)
+        ok = torch.ones(S, dtype=torch.bool, device=dev)
+        diff = torch.zeros(S, device=dev)
+        t1 = time.perf_counter()
+        for t in range(S):
+            lt, caches = api.decode_step(params, caches,
+                                         {"tokens": toks[:, t]},
+                                         activ_dtype=f32)
+            ref = full[:, t]
+            err = (lt - ref).abs()
+            diff[t] = err.max()
+            ok[t] = (err <= DECODE_TOL + DECODE_TOL * ref.abs()).all()
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t1
+    bad = torch.nonzero(~ok).flatten().tolist()
+    check(not bad, f"gemma3 decode: steps {bad[:10]} differ from the forward "
+          f"by more than {DECODE_TOL} (max {float(diff.max()):.3e})")
+    check(flash_launches() == fwd, "gemma3 decode launched flash attention")
+    kpos = caches["local"].kpos
+    check(int(kpos.min()) == S - cfg.window and int(kpos.max()) == S - 1 and
+          int(caches["global"].kpos.min()) == 0,
+          f"gemma3 decode: local rings hold positions {int(kpos.min())}.."
+          f"{int(kpos.max())}, expected {S - cfg.window}..{S - 1}")
+    del caches, full
+    stack = params["stack"]
+    with torch.inference_mode():
+        x = embed(cfg, params["embed"], toks, f32)
+        d_local = block_against_cpu(cfg, layer(layer(stack["local"], 0), 0),
+                                    x, window=cfg.window,
+                                    what="gemma3 local block 1")
+        pos = torch.arange(S, device=dev)[None]
+        for j in range(cfg.local_global):
+            x, _, _ = block_fwd(cfg, layer(layer(stack["local"], 0), j), x,
+                                pos, window=cfg.window)
+        d_global = block_against_cpu(cfg, layer(stack["global"], 0), x,
+                                     window=None,
+                                     what="gemma3 global block 6")
+    log(f"gemma3 window: {cfg.n_layers} layers float32, forward at S={S} "
+        f"(launches {fwd}), {S} decode steps in {dec_s:.2f} s "
+        f"({dec_s / S * 1e3:.4f} ms per step): every step within "
+        f"{float(diff.max()):.3e} of the forward (gate {DECODE_TOL}); local "
+        f"rings hold positions {S - cfg.window}..{S - 1} after the wrap; "
+        f"teacher-forced blocks card vs CPU: local {d_local:.3e}, global "
+        f"{d_global:.3e} of their largest output (gate {LAYER_RTOL}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return fwd["simt"]
+
+
+def phase_qwen15(dev):
+    """qwen1.5-32b at full width (40 heads over 40, D=128, QKV bias),
+    depth cut to QWEN_LAYERS, bf16 weights: `make_prefill_step` at B=1,
+    S=QWEN_PREFILL_S, one sm90 launch a layer and no CUDA-core one, finite
+    logits; then layer 1's block in float32 with random QKV biases,
+    card against the CPU at S=QWEN_REF_S (`block_against_cpu`; the
+    CUDA-core kernel at G=1, D=128).  Returns the sm90 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.models.common import embed, tree_map
+    from repro_torch.models.transformer import layer
+    from repro_torch.runtime.step import make_prefill_step
+    t0 = time.perf_counter()
+    cfg, params = family_model(QWEN_ARCH, dev, n_layers=QWEN_LAYERS, seed=2)
+    check(cfg.n_heads == cfg.n_kv_heads and cfg.qkv_bias,
+          "qwen1.5: multi-head attention with a QKV bias")
+    step = make_prefill_step(RunConfig(cfg, SHAPES["prefill_32k"]))
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, QWEN_PREFILL_S)), device=dev)
+    logits, walls, launches, peak = timed_prefills(
+        step, params, {"tokens": toks}, {"tokens": toks[:, :PREFILL_WARM_S]})
+    check_prefill(cfg, logits, launches, 2 * cfg.n_layers, "qwen1.5 prefill")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p0 = tree_map(lambda t: t.float(), layer(params["stack"]["layers"], 0))
+    for b in ("bq", "bk", "bv"):
+        p0["attn"][b] = 0.1 * torch.randn(p0["attn"][b].shape, generator=gen,
+                                          device=dev)
+    with torch.inference_mode():
+        x = embed(cfg, {"table": params["embed"]["table"].float()},
+                  toks[:, :QWEN_REF_S], torch.float32)
+    d = block_against_cpu(cfg, p0, x, window=None, what="qwen1.5 block 1")
+    med = statistics.median(walls)
+    log(f"qwen1.5: {cfg.n_layers} layers bf16, B=1, S={QWEN_PREFILL_S}, 2 "
+        f"prefills {', '.join(f'{w:.4f}' for w in walls)} ms: {med:.4f} ms "
+        f"per prefill, {QWEN_PREFILL_S / med * 1e3:.2f} tokens/s; launches "
+        f"{launches}; peak {peak:.2f} GiB; block 1 in float32 with random "
+        f"QKV biases at S={QWEN_REF_S}, card vs CPU {d:.3e} of its largest "
+        f"output (gate {LAYER_RTOL}) ({time.perf_counter() - t0:.1f} s)")
+    return launches["sm90"]
+
+
+def train_family(arch: str, batch: int, want: tuple, *,
+                 steps: int = FAMILY_TRAIN_STEPS, every_leaf: bool = True):
+    """``steps`` float32 steps of ``arch`` at full width through
+    `launch.train.main` (B=``batch``, S=FAMILY_TRAIN_S, remat full), each
+    step's launches (CUDA-core flash, sm90 flash, bp_topk_route) counted
+    by `StepRecorder`: every step ``want``, the first loss finite and,
+    with ``every_leaf``, every loss finite and after step 1 a finite,
+    non-zero gradient on every leaf.  Returns (losses, ms per step, the
+    first moments' summary, the CUDA-core launches of all steps as
+    counted)."""
+    import torch
+    from repro_torch.launch import train as T
+    rec = StepRecorder()
+    original = T.make_train_step
+    T.make_train_step = rec.record(original)
+    try:
+        losses = T.main(["--arch", arch, "--steps", str(steps),
+                         "--batch", str(batch), "--seq", str(FAMILY_TRAIN_S),
+                         "--remat", "full", "--log-every", "1"])
+    finally:
+        T.make_train_step = original
+    check(len(losses) == steps and math.isfinite(losses[0]) and
+          (not every_leaf or all(math.isfinite(x) for x in losses)),
+          f"{arch} training: losses {losses}")
+    check(all(n == want for n in rec.launches),
+          f"{arch} training: launches per step {rec.launches}, expected "
+          f"{want} (CUDA-core flash, sm90 flash, bp_topk_route)")
+    bad = sorted(k for k, v in rec.m_after_1.items()
+                 if not (v[0] and v[1] > 0))
+    check(not (every_leaf and bad), f"{arch} training: after step 1 these "
+          f"leaves have a zero or non-finite gradient: {bad}")
+    torch.cuda.empty_cache()
+    return losses, rec.ms, rec.m_after_1, sum(n[0] for n in rec.launches)
+
+
+def phase_vlm(dev):
+    """internvl2-1b at full width and depth (24 layers, G=7, D=64): a bf16
+    `make_prefill_step` over VLM_TEXT_S text tokens behind its 256 patch
+    embeddings, 24 sm90 launches a prefill; the float32 logits of 64 text
+    tokens behind random patches, card against the CPU within LOGIT_ATOL +
+    FAMILY_LOGIT_RTOL |cpu|; FAMILY_TRAIN_STEPS float32 steps of
+    `make_train_step` (what the launcher runs; remat full) on random patch
+    embeddings: 48 CUDA-core launches a step, finite losses, after step 1
+    a finite, non-zero gradient on every leaf, the projector's included.
+    Then one step through the launcher (`launch.train.main`) on its own
+    batch, the reference's zero patch embeddings: 48 launches and a finite
+    loss; the non-finite gradients that batch gives at this depth (zero
+    prefix rows stay zero through every layer, and each norm's backward
+    at a zero row scales by rsqrt(eps) = 1e3; the reference's launcher
+    does the same on the CPU) are counted and printed.  Returns (sm90,
+    CUDA-core) launches of the prefills and the training steps."""
+    import torch
+    from repro_torch.configs import SHAPES, RunConfig, ShapeConfig
+    from repro_torch.models import get_model
+    from repro_torch.runtime.step import (init_train_state,
+                                          make_prefill_step, make_train_step)
+    t0 = time.perf_counter()
+    cfg, params = family_model(VLM_ARCH, dev, seed=3)
+    P, d, L = cfg.n_patches, cfg.d_model, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def vlm_batch(B, S_text):
+        return {"patch_embeds": torch.randn((B, P, d), generator=gen,
+                                            device=dev),
+                "tokens": torch.randint(0, cfg.vocab, (B, S_text),
+                                        generator=gen, device=dev)}
+    step = make_prefill_step(RunConfig(cfg, SHAPES["prefill_32k"]))
+    logits, walls, launches, peak = timed_prefills(
+        step, params, vlm_batch(1, VLM_TEXT_S), vlm_batch(1, 128))
+    check_prefill(cfg, logits, launches, 2 * L, "VLM prefill")
+    del params
+    cfg, p32 = family_model(VLM_ARCH, dev, dtype="float32", seed=4)
+    api = get_model(cfg)
+    b = vlm_batch(1, VLM_REF_TEXT_S)
+    with torch.inference_mode():
+        ld, _, _ = api.logits(p32, b, activ_dtype=torch.float32)
+        lc, _, _ = api.logits(to_device_tree(p32, torch.device("cpu")),
+                              to_device_tree(b, torch.device("cpu")),
+                              activ_dtype=torch.float32)
+    err = max_abs_err([(ld.cpu(), lc)])
+    check(tuple(ld.shape) == (1, P + VLM_REF_TEXT_S, cfg.vocab) and
+          within(ld.cpu(), lc, LOGIT_ATOL, FAMILY_LOGIT_RTOL),
+          f"VLM logits card vs CPU: max abs {err:.3e} (gate {LOGIT_ATOL} + "
+          f"{FAMILY_LOGIT_RTOL} |cpu|)")
+    del p32, ld, lc
+    rcfg = RunConfig(cfg, ShapeConfig("train", FAMILY_TRAIN_S, VLM_TRAIN_B,
+                                      "train"), activ_dtype="float32",
+                     remat="full")
+    state, _ = init_train_state(
+        rcfg, torch.Generator(device=dev).manual_seed(5), device=dev)
+    rec = StepRecorder()
+    train_step = rec.record(make_train_step)(rcfg)
+    for _ in range(FAMILY_TRAIN_STEPS):
+        state, _ = train_step(state, vlm_batch(VLM_TRAIN_B,
+                                               FAMILY_TRAIN_S + 1))
+    want = (2 * L, 0, 0)
+    check(all(math.isfinite(x) for x in rec.losses) and
+          all(n == want for n in rec.launches),
+          f"VLM training: losses {rec.losses}, launches per step "
+          f"{rec.launches}, expected {want}")
+    bad = sorted(k for k, v in rec.m_after_1.items()
+                 if not (v[0] and v[1] > 0))
+    proj = [v[1] for k, v in rec.m_after_1.items()
+            if k.startswith("projector")]
+    check(not bad and len(proj) == 3, f"VLM training: after step 1 these "
+          f"leaves have a zero or non-finite gradient: {bad}")
+    simt = sum(n[0] for n in rec.launches)
+    del state, train_step
+    torch.cuda.empty_cache()
+    zl, zms, zm, zsimt = train_family(VLM_ARCH, VLM_TRAIN_B, want, steps=1,
+                                      every_leaf=False)
+    nonfinite = sorted(k for k, v in zm.items() if not v[0])
+    med = statistics.median(walls)
+    log(f"VLM: {cfg.name}, {L} layers, bf16 prefill of {P} patches + "
+        f"{VLM_TEXT_S} text tokens {', '.join(f'{w:.4f}' for w in walls)} ms "
+        f"({(P + VLM_TEXT_S) / med * 1e3:.2f} tokens/s), launches {launches}, "
+        f"peak {peak:.2f} GiB; float32 logits of {P} + {VLM_REF_TEXT_S} "
+        f"tokens card vs CPU within {err:.3e}; make_train_step (float32, "
+        f"B={VLM_TRAIN_B}, S={FAMILY_TRAIN_S} + {P} random patches, remat "
+        f"full): losses {', '.join(f'{x:.5f}' for x in rec.losses)}, ms per "
+        f"step {', '.join(f'{x:.1f}' for x in rec.ms)}, {want} launches a "
+        f"step, every leaf a gradient (the projector's max |m| "
+        f"{max(proj):.3e}); the launcher's step on its zero patches: loss "
+        f"{zl[0]:.5f}, {zms[0]:.1f} ms, {want} launches, {len(nonfinite)} "
+        f"of {len(zm)} leaves with a non-finite gradient "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches["sm90"], simt + zsimt
+
+
+def phase_encdec(dev):
+    """seamless-m4t-large-v2 at full width and depth (24 encoder + 24
+    decoder layers, 16 heads over 16, D=64): a bf16 `make_prefill_step`
+    with ENCDEC_FRAMES frames and ENCDEC_TGT target tokens, 72 sm90
+    launches a prefill (24 encoder, not causal, S=T=4,096; 24 decoder self,
+    causal; 24 cross, not causal, S=1,024 against T=4,096); in float32 the
+    encoder's memory, `build_cross_cache` and ENCDEC_DECODE_STEPS decode
+    steps, each 24 CUDA-core cross-attention launches at S=1 against
+    T=4,096 and its logits within DECODE_TOL of `decode_fwd`'s; then
+    FAMILY_TRAIN_STEPS float32 steps through the launcher, 144 CUDA-core
+    launches a step under full remat.  Returns (sm90 launches of the
+    prefills, CUDA-core launches of decode and training)."""
+    import torch
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.models import encdec, get_model
+    from repro_torch.runtime.step import make_prefill_step
+    t0 = time.perf_counter()
+    cfg, params = family_model(ENCDEC_ARCH, dev, seed=5)
+    L = cfg.dec_layers
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def ed_batch(S_src, S_tgt):
+        return {"frames": torch.randn((1, S_src, cfg.d_model), generator=gen,
+                                      device=dev),
+                "tokens": torch.randint(0, cfg.vocab, (1, S_tgt),
+                                        generator=gen, device=dev)}
+    step = make_prefill_step(RunConfig(cfg, SHAPES["prefill_32k"]))
+    logits, walls, launches, peak = timed_prefills(
+        step, params, ed_batch(ENCDEC_FRAMES, ENCDEC_TGT), ed_batch(512, 128))
+    check_prefill(cfg, logits, launches, 2 * (cfg.enc_layers + 2 * L),
+                  "encdec prefill")
+    del params
+    cfg, p32 = family_model(ENCDEC_ARCH, dev, dtype="float32", seed=6)
+    api, f32 = get_model(cfg), torch.float32
+    b = ed_batch(ENCDEC_FRAMES, ENCDEC_DECODE_STEPS)
+    toks = b["tokens"]
+    with torch.inference_mode():
+        memory = encdec.encode(cfg, p32, b["frames"], remat="none")
+        full = encdec.decode_fwd(cfg, p32, toks, memory, activ_dtype=f32,
+                                 remat="none")
+        caches = encdec.build_cross_cache(cfg, p32, memory,
+                                          ENCDEC_DECODE_STEPS, f32)
+        n = ENCDEC_DECODE_STEPS
+        ok = torch.ones(n, dtype=torch.bool, device=dev)
+        diff = torch.zeros(n, device=dev)
+        torch.cuda.synchronize()
+        reset_flash()
+        t1 = time.perf_counter()
+        for t in range(n):
+            lt, caches = api.decode_step(p32, caches, {"tokens": toks[:, t]},
+                                         activ_dtype=f32)
+            err = (lt - full[:, t]).abs()
+            diff[t] = err.max()
+            ok[t] = (err <= DECODE_TOL + DECODE_TOL * full[:, t].abs()).all()
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t1) / n * 1e3
+        dec = flash_launches()
+    bad = torch.nonzero(~ok).flatten().tolist()
+    check(not bad, f"encdec decode: steps {bad[:10]} differ from decode_fwd "
+          f"by more than {DECODE_TOL} (max {float(diff.max()):.3e})")
+    check(dec == {"sm90": 0, "simt": n * L},
+          f"encdec decode: flash launches {dec}, expected {L} CUDA-core "
+          f"cross-attention launches per step")
+    del p32, memory, full, caches
+    torch.cuda.empty_cache()
+    want = 2 * (cfg.enc_layers + 2 * L)
+    losses, ms, _, simt = train_family(ENCDEC_ARCH, ENCDEC_TRAIN_B,
+                                       (want, 0, 0))
+    med = statistics.median(walls)
+    log(f"encdec: {cfg.name}, {cfg.enc_layers} + {L} layers, bf16 prefill "
+        f"of {ENCDEC_FRAMES} frames and {ENCDEC_TGT} target tokens "
+        f"{', '.join(f'{w:.4f}' for w in walls)} ms ({med:.4f} ms per "
+        f"prefill), launches {launches}, peak {peak:.2f} GiB; float32 decode "
+        f"of {n} steps against {ENCDEC_FRAMES} memory rows, {dec_ms:.4f} ms "
+        f"per step, every step within {float(diff.max()):.3e} of decode_fwd "
+        f"(gate {DECODE_TOL}), launches {dec}; training through the launcher "
+        f"(float32, B={ENCDEC_TRAIN_B}, S={FAMILY_TRAIN_S}, remat full): "
+        f"losses {', '.join(f'{x:.5f}' for x in losses)}, ms per step "
+        f"{', '.join(f'{x:.1f}' for x in ms)}, {want} CUDA-core launches a "
+        f"step ({time.perf_counter() - t0:.1f} s)")
+    return launches["sm90"], dec["simt"] + simt
+
+
 def to_device_tree(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device_tree(v, dev) for k, v in tree.items()}
@@ -4232,13 +5010,45 @@ def main() -> int:
         f"{k} {v:.1f} s" for k, v in phase_s.items()) +
         f"; {time.perf_counter() - t_train:.1f} s in all")
     launches["flash_attention"] += train_launches["flash_attention_sm90"]
-    rows["flash_attention"]["simt_f32_launches"] = \
-        train_launches["flash_attention"]
+    simt_launches = train_launches["flash_attention"]
+
+    # Phases 18-23: each family's path, its counters set to 0 just before
+    # it is driven and read just after (inside each phase).
+    t_fam, phase_s = time.perf_counter(), {}
+
+    def timed(fn, *args):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        out = fn(*args)
+        phase_s[fn.__name__] = time.perf_counter() - t_phase
+        return out
+
+    cfg_g, params_g, gemma_sm90 = timed(phase_gemma3_prefill, dev)
+    timed(phase_gemma3_serve, dev, cfg_g, params_g)
+    del params_g
+    simt_launches += timed(phase_gemma3_window, dev)
+    qwen_sm90 = timed(phase_qwen15, dev)
+    vlm_sm90, vlm_simt = timed(phase_vlm, dev)
+    ed_sm90, ed_simt = timed(phase_encdec, dev)
+    log("family phases: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in phase_s.items()) +
+        f"; {time.perf_counter() - t_fam:.1f} s in all")
+    launches["flash_attention"] += gemma_sm90 + qwen_sm90 + vlm_sm90 + \
+        ed_sm90
+    simt_launches += vlm_simt + ed_simt
+    rows["flash_attention"]["simt_f32_launches"] = simt_launches
     rows["flash_attention"]["path"] = (
         "sm90 (launches): 24 per prefill (phase_prefill), 24 per bfloat16 "
-        "training step (phase_train, make_train_step); CUDA-core "
-        "(simt_f32_launches): 48 per float32 training step under full remat "
-        "(phase_train, launch.train.main)")
+        "training step (phase_train, make_train_step); gemma3-27b 62 per "
+        "prefill at S=32,768 (phase_gemma3_prefill), qwen1.5-32b 4 "
+        "(phase_qwen15), internvl2-1b 24 (phase_vlm), seamless 72 "
+        "(phase_encdec). CUDA-core (simt_f32_launches): 48 per float32 "
+        "training step under full remat (phase_train, launch.train.main); "
+        "gemma3 at 8 layers, 8 per float32 forward (phase_gemma3_window); "
+        "internvl2-1b 48 per float32 training step (phase_vlm); seamless "
+        "24 cross-attention launches per decode step and 144 per float32 "
+        "training step (phase_encdec)")
     launches["bp_topk_route"] += train_launches["bp_topk_route"]
     rows["bp_topk_route"]["path"] = (
         "Engine decode steps (phase_serve); 24 more per prefill "
@@ -4257,13 +5067,17 @@ def main() -> int:
     # flash attention also names its kernel and the CUDA-core kernel's
     # float32 time, bound and training launches, and SDPA's float32 time,
     # at the prefill shape and at the training shape (`_train_`, with the
-    # plain version's time there);
+    # plain version's time there), and the sm90 kernel's time, bound and
+    # SDPA's at gemma3's global and windowed layers (`gemma_`);
     # the bp_slot, bp_topk and flash rows name the paths that launched
     # them.
     shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms",
              "simt_f32_bound_ms", "simt_f32_launches", "library_f32_ms",
              "simt_f32_train_ms", "plain_f32_train_ms",
-             "library_f32_train_ms", "simt_f32_train_bound_ms", "path")
+             "library_f32_train_ms", "simt_f32_train_bound_ms",
+             "gemma_global_ms", "gemma_global_bound_ms",
+             "gemma_global_library_ms", "gemma_window_ms",
+             "gemma_window_bound_ms", "gemma_window_library_ms", "path")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}
     for r in table["kernels"]:

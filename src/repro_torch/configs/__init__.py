@@ -1,13 +1,18 @@
 """Config registry of the ported architectures: `get_config(arch_id)`.
 
-Only the configurations whose family the port runs are here (dense and
-MoE decoder-only transformers); the JAX package's other architectures
-follow with their families (ROADMAP A13).
+Only the configurations whose family the port runs are here: dense
+(with gemma3's local/global pattern), MoE, the VLM and the
+encoder-decoder.  zamba2-2.7b (hybrid) and xlstm-350m (ssm) follow with
+their families (ROADMAP A13).  `paper_grid.problem(C)` is the paper's own
+network instance.
 """
-from . import granite_moe_1b_a400m, moonshot_v1_16b_a3b, olmo_1b, qwen2_05b
+from . import (gemma3_27b, granite_moe_1b_a400m, internvl2_1b,
+               moonshot_v1_16b_a3b, olmo_1b, qwen2_05b, qwen15_32b,
+               seamless_m4t_large_v2)
 from .base import SHAPES, ModelConfig, RunConfig, ShapeConfig, reduced
 
-_MODULES = (olmo_1b, qwen2_05b, moonshot_v1_16b_a3b, granite_moe_1b_a400m)
+_MODULES = (gemma3_27b, olmo_1b, qwen15_32b, qwen2_05b, moonshot_v1_16b_a3b,
+            granite_moe_1b_a400m, seamless_m4t_large_v2, internvl2_1b)
 
 ARCHS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -1,8 +1,9 @@
 """End-to-end training driver.
 
 Port of `repro.launch.train` for the families the port runs (dense and MoE
-decoder-only transformers; the VLM and encoder-decoder batches come with
-their families, ROADMAP A13): the deterministic token stream, AdamW with a
+decoder-only transformers, the VLM, whose batch gains zero patch
+embeddings, and the encoder-decoder, whose batch gains frames of 0.02, as
+the reference's): the deterministic token stream, AdamW with a
 warmup+cosine schedule, optional gradient compression and accumulation,
 atomic checkpoints (`repro_torch.checkpoint.Checkpointer`: a background
 save every ``--ckpt-every`` steps and a blocking one at the end), straggler
@@ -96,6 +97,13 @@ def main(argv=None):
     for step in range(start, args.steps):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.batch(step).items()}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (args.batch, cfg.n_patches, cfg.d_model), device=dev)
+        if cfg.family == "encdec":
+            batch = {"tokens": batch["tokens"],
+                     "frames": torch.ones((args.batch, args.seq,
+                                           cfg.d_model), device=dev) * 0.02}
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
         now = time.time()

@@ -1,6 +1,7 @@
-"""LLM substrate of the port: dense and MoE decoder-only transformers, the
-prefill forward (`transformer.lm_logits`) and the decode path
-(`transformer.lm_decode_step`) through the uniform `ModelAPI`."""
+"""LLM substrate of the port: dense (with Gemma's local/global pattern)
+and MoE decoder-only transformers (`transformer`), the VLM (`vlm`) and
+the encoder-decoder (`encdec`): init, loss, the prefill forward and
+decode through the uniform `ModelAPI`."""
 from .api import ModelAPI, get_model
 from .common import Annotated, Init, split_tree
 

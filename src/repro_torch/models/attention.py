@@ -1,12 +1,13 @@
-"""GQA attention with RoPE: the prefill forward and the decode path.
+"""GQA attention with RoPE: the prefill forward, cross-attention and the
+decode path.
 
 Port of `repro.models.attention`: `KVCache`, `init_attn`, `_project_qkv`,
 `_mask`, `sdpa` (the einsum reference path, scores in float32 with -1e30
-on masked keys), `attention` (the train/prefill self-attention, with a
-gradient through the kernel on the card),
-`init_cache` and `decode_attention`.  The reference's other prefill forms
-(`sdpa_chunked`, `sdpa_banded`), cross-attention and `prefill_cache` wait
-for later slices (ROADMAP A13).
+on masked keys), the online-softmax forms `sdpa_chunked` and
+`sdpa_banded`, `attention` (the train/prefill self-attention, with a
+gradient through the kernel on the card), `cross_attention` and
+`encode_kv` (the encoder-decoder's), `init_cache`, `prefill_cache` and
+`decode_attention`.
 
 Unlike the reference's pure functions, `decode_attention` writes the new
 key, value and position into the cache's tensors in place (the port's
@@ -23,6 +24,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import (flash_attention_fn,
                                           flash_attention_op)
+from ..runtime import flags
 from .common import Init, apply_rope
 
 
@@ -97,34 +99,205 @@ def sdpa(q, k, v, mask) -> torch.Tensor:
     return out.reshape(B, S, H, D)
 
 
+def _pad_to(x, n: int, axis: int, value=0):
+    """``x`` padded with ``value`` at the end of ``axis`` to a multiple of
+    ``n``."""
+    pad = (-x.shape[axis]) % n
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], dim=axis)
+
+
+def sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool,
+                 window: Optional[int], chunk_q: int = 2048,
+                 chunk_k: int = 2048) -> torch.Tensor:
+    """Online-softmax attention over query and key chunks (the reference's
+    `sdpa_chunked`, its nested scans as `flags.layer_scan` loops): no
+    [S, T] score tensor, at most [chunk_q, chunk_k] per head.  Padded
+    queries carry position -1e9, padded keys -1 (invalid).
+
+    q [B,S,H,D]; k/v [B,T,KH,D]; q_pos [B,S]; k_pos [B,T] (-1 = invalid).
+    """
+    B, S, H, D = q.shape
+    KH, T = k.shape[2], k.shape[1]
+    G = H // KH
+    cq, ck = min(chunk_q, S), min(chunk_k, T)
+    qp = _pad_to(q, cq, 1)
+    qpos = _pad_to(q_pos, cq, 1, value=-(10 ** 9))
+    kp = _pad_to(k, ck, 1)
+    vp = _pad_to(v, ck, 1)
+    kpos = _pad_to(k_pos, ck, 1, value=-1)
+    Sq, Tk = qp.shape[1], kp.shape[1]
+    nq, nk = Sq // cq, Tk // ck
+
+    qh = qp.reshape(B, nq, cq, KH, G, D).transpose(0, 1)
+    qpos_c = qpos.reshape(B, nq, cq).transpose(0, 1)
+    kh = kp.reshape(B, nk, ck, KH, D).transpose(0, 1)
+    vh = vp.reshape(B, nk, ck, KH, D).transpose(0, 1)
+    kpos_c = kpos.reshape(B, nk, ck).transpose(0, 1)
+    scale = 1.0 / math.sqrt(D)
+
+    def q_block(_, xs):
+        qc, qpc = xs                               # [B,cq,KH,G,D], [B,cq]
+
+        def kv_block(carry, xs2):
+            m, l, acc = carry
+            kc, vc, kpc = xs2                      # [B,ck,KH,D], [B,ck]
+            s = torch.einsum("bskgd,btkd->bkgst", qc, kc) * scale
+            s = s.to(torch.float32)
+            valid = (kpc[:, None, :] >= 0) & (qpc[:, :, None] >= 0)
+            if causal:
+                valid &= qpc[:, :, None] >= kpc[:, None, :]
+            if window is not None:
+                valid &= kpc[:, None, :] > qpc[:, :, None] - window
+            valid = valid[:, None, None]           # [B,1,1,cq,ck]
+            s = torch.where(valid, s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+            l_new = l * alpha + p.sum(dim=-1)
+            acc_new = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p.to(vc.dtype), vc)
+            return (m_new, l_new, acc_new.to(acc.dtype)), None
+
+        dev = q.device
+        m0 = torch.full((B, KH, G, cq), -1e30, dtype=torch.float32,
+                        device=dev)
+        l0 = torch.zeros((B, KH, G, cq), dtype=torch.float32, device=dev)
+        a0 = torch.zeros((B, KH, G, cq, D), dtype=torch.float32, device=dev)
+        (m, l, acc), _ = flags.layer_scan(kv_block, (m0, l0, a0),
+                                          (kh, vh, kpos_c))
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return None, out.to(q.dtype)               # [B,KH,G,cq,D]
+
+    _, outs = flags.layer_scan(q_block, None, (qh, qpos_c))
+    # outs: [nq, B, KH, G, cq, D] -> [B, Sq, H, D]
+    out = outs.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, KH * G, D)
+    return out[:, :S]
+
+
+def sdpa_banded(q, k, v, q_pos, k_pos, *, window: int) -> torch.Tensor:
+    """Sliding-window attention in O(S * window): each query block of
+    ``window`` rows attends to the previous block and its own, masked
+    causally and by the window through the absolute positions (the
+    reference's `sdpa_banded`).
+
+    q [B,S,H,D]; k/v [B,T,KH,D] with S == T (self-attention only).
+    """
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    cb = window
+    qp = _pad_to(q, cb, 1)
+    kp = _pad_to(k, cb, 1)
+    vp = _pad_to(v, cb, 1)
+    qpos = _pad_to(q_pos, cb, 1, value=-(10 ** 9))
+    kpos = _pad_to(k_pos, cb, 1, value=-1)
+    Sp = qp.shape[1]
+    nb = Sp // cb
+
+    qb = qp.reshape(B, nb, cb, KH, G, D)
+    qpb = qpos.reshape(B, nb, cb)
+
+    def banded(t, fill=0):  # [B, Sp, ...] -> [B, nb, 2cb, ...]
+        tb = t.reshape(B, nb, cb, *t.shape[2:])
+        prev = torch.cat([torch.full_like(tb[:, :1], fill), tb[:, :-1]],
+                         dim=1)
+        return torch.cat([prev, tb], dim=2)
+
+    kb = banded(kp)
+    vb = banded(vp)
+    # block 0's shifted-in band must carry INVALID positions, not pos 0
+    kpb = banded(torch.where(kpos < 0, -(10 ** 9), kpos)[..., None],
+                 fill=-(10 ** 9))[..., 0]
+
+    s = torch.einsum("bnskgd,bntkd->bkgnst", qb, kb) / math.sqrt(D)
+    valid = (kpb[:, :, None, :] >= 0) & (qpb[:, :, :, None] >= 0)
+    valid &= qpb[:, :, :, None] >= kpb[:, :, None, :]          # causal
+    valid &= kpb[:, :, None, :] > qpb[:, :, :, None] - window  # window
+    # s: [B,KH,G,nb,cb,2cb]; valid: [B,nb,cb,2cb] -> broadcast over KH,G
+    s = torch.where(valid[:, None, None], s.to(torch.float32), -1e30)
+    w = torch.softmax(s, dim=-1)
+    any_valid = valid.any(dim=-1)                              # [B,nb,cb]
+    w = torch.where(any_valid[:, None, None, :, :, None], w, 0.0)
+    out = torch.einsum("bkgnst,bntkd->bnskgd", w.to(vb.dtype), vb)
+    return out.reshape(B, Sp, KH * G, D)[:, :S]
+
+
+def _kernel_core(q, k, v, *, causal: bool, window: Optional[int]):
+    """The flash kernel on [B, S, H, D] q and [B, T, KH, D] k/v, given as
+    their [B, H, S, D] ``transpose(1, 2)`` views (the kernel reads
+    strides): through `flash_attention_fn` (`FlashAttentionFn`, the
+    gradient) when any input needs a gradient, else `flash_attention_op`.
+    """
+    core = (flash_attention_fn if any(t.requires_grad for t in (q, k, v))
+            else flash_attention_op)
+    return core(*(t.contiguous().transpose(1, 2) for t in (q, k, v)),
+                causal=causal, window=window).transpose(1, 2)
+
+
 def attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
               window: Optional[int] = None,
               causal: bool = True) -> torch.Tensor:
     """Full (train/prefill) self-attention: x [B, S, d] -> [B, S, d].
 
-    The core is chosen by the device.  On CUDA it is the hand-written
-    kernel, given the [B, S, H, D] projections as their [B, H, S, D]
-    ``transpose(1, 2)`` views (the kernel reads strides, so nothing is
-    copied) and masking by index: through `flash_attention_fn`, which
-    carries the gradient (`FlashAttentionFn`), when the projections need
-    one (training), and through `flash_attention_op` otherwise (prefill,
-    and any forward whose weights need no gradient).  On the CPU it is
-    `sdpa` with
-    `_mask` over ``positions``: the reference's "naive" impl.  The two
-    agree because every caller passes positions = arange(S) (`lm_logits`),
-    so position and index coincide.  The reference's sharding constraints
-    and context parallelism do not apply on one device."""
+    On CUDA the core is the hand-written kernel (`_kernel_core`), masking
+    by index; on the CPU it is `sdpa` with `_mask` over ``positions``.
+    Index and position agree because every caller passes positions =
+    arange(S) (`lm_logits`, with or without a prefix; `encdec.encode`).
+    The reference's choice of core by its attention-impl flag, and its
+    sharding constraints, wait for the dry-run stack (ROADMAP A13): on
+    the CPU `sdpa_chunked`/`sdpa_banded` equal `sdpa` within float32
+    rounding, and on the card the kernel is the core for either."""
     q, k, v = _project_qkv(cfg, p, x, positions)
     if x.device.type == "cuda":
-        core = (flash_attention_fn if any(t.requires_grad for t in (q, k, v))
-                else flash_attention_op)
-        out = core(*(t.contiguous().transpose(1, 2) for t in (q, k, v)),
-                   causal=causal, window=window).transpose(1, 2)
+        out = _kernel_core(q, k, v, causal=causal, window=window)
     else:
         pos = positions if positions.dim() == 2 else positions[None, :]
         pos = pos.expand(x.shape[:2])
         out = sdpa(q, k, v, _mask(pos, pos, causal=causal, window=window))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def cross_attention(cfg, p: dict, x: torch.Tensor, memory_kv,
+                    mem_mask=None) -> torch.Tensor:
+    """Decoder cross-attention of x [B, S, d] against precomputed memory
+    K/V ([B, T, KH, D] each) -> [B, S, d].  On CUDA the core is the flash
+    kernel, not causal and without a window (`_kernel_core`); the kernel
+    takes no mask, so a ``mem_mask`` [B, S, T] (no caller passes one) is
+    refused there.  On the CPU the core is `sdpa`, with the mask if
+    given."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+    k, v = memory_kv
+    if x.device.type == "cuda":
+        if mem_mask is not None:
+            raise NotImplementedError(
+                "cross_attention: the flash kernel takes no memory mask")
+        out = _kernel_core(q, k, v, causal=False, window=None)
+    else:
+        B, S = x.shape[:2]
+        m = (torch.ones((B, S, k.shape[1]), dtype=torch.bool,
+                        device=x.device) if mem_mask is None else mem_mask)
+        out = sdpa(q, k, v, m)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+
+def encode_kv(cfg, p: dict, mem: torch.Tensor):
+    """The memory's cross-attention K/V: mem [B, T, d] -> ([B, T, KH, D],
+    [B, T, KH, D]) (no RoPE, as in the reference)."""
+    dt = mem.dtype
+    k = torch.einsum("btd,dhk->bthk", mem, p["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", mem, p["wv"].to(dt))
+    if "bk" in p:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return k, v
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, *,
@@ -141,6 +314,20 @@ def init_cache(cfg, batch: int, max_len: int, dtype, *,
                    torch.full((T_cache,), -1, dtype=torch.int32,
                               device=device),
                    torch.zeros((), dtype=torch.int32, device=device))
+
+
+def prefill_cache(cache: KVCache, k: torch.Tensor,
+                  v: torch.Tensor) -> KVCache:
+    """Load a full prefix (no wrap) into a fresh cache; k/v: [B, S, KH, D].
+    Returns a new cache, as the reference's does (the given one is left
+    as it was)."""
+    S = k.shape[1]
+    kc, vc, kpos = cache.k.clone(), cache.v.clone(), cache.kpos.clone()
+    kc[:, :S] = k.to(kc.dtype)
+    vc[:, :S] = v.to(vc.dtype)
+    kpos[:S] = torch.arange(S, dtype=torch.int32, device=kpos.device)
+    return KVCache(kc, vc, kpos, torch.tensor(S, dtype=torch.int32,
+                                              device=kpos.device))
 
 
 def decode_attention(cfg, p: dict, x: torch.Tensor, cache: KVCache, *,

@@ -53,7 +53,9 @@ class Init:
             v = torch.empty(full_shape, dtype=torch.float32, device=dev)
             torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,
                                         generator=self.gen)
-            v = (v * scale).to(self.dtype)
+            # In place: a second float32 copy of a stacked leaf (23 GB for
+            # gemma3-27b's local MLP stack) would not fit beside the rest.
+            v = v.mul_(scale).to(self.dtype)
         return Annotated(v, full_axes)
 
 
@@ -166,9 +168,12 @@ def init_embedding(cfg, ini: Init) -> dict:
 
 
 def embed(cfg, p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    """Table lookup.  The reference's sqrt(d_model) scaling for Gemma comes
-    with that family (ROADMAP A13); no ported config needs it."""
-    return p["table"].to(dtype)[tokens]
+    """Table lookup; Gemma scales it by sqrt(d_model), as the reference
+    does (in the activation dtype)."""
+    x = p["table"].to(dtype)[tokens]
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+    return x
 
 
 def unembed(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,16 @@
-"""Decoder-only transformer stack (dense and MoE): init, the training
-loss, the prefill forward and decode.
+"""Decoder-only transformer stack (dense, MoE and Gemma's k-local:1-global
+pattern): init, the training loss, the prefill forward and decode.
 
-Port of `repro.models.transformer` for stacks without the local/global
-pattern (which waits for its families, ROADMAP A13).  Layer params are
-stacked ([L, ...] leading dims) as in the reference; its `layer_scan` over
-the stack becomes a Python loop over the layers, each layer's params one
-`unbind` view per leaf (`unstack`), so the gradient of a stacked leaf is
-one stack of its layers' gradients.  `_remat` gives the reference's
+Port of `repro.models.transformer`.  Layer params are stacked ([L, ...]
+leading dims) as in the reference; its `layer_scan` over the stack becomes
+a Python loop over the layers, each layer's params one `unbind` view per
+leaf (`unstack`), so the gradient of a stacked leaf is one stack of its
+layers' gradients.  The local/global pattern (`_pattern`) stacks its
+params and caches as {"local": [n_groups, k, ...], "global": [n_groups,
+...], "tail": [tail, ...]}; the [n_groups, k] stacks are split by two
+`unbind`s, so every layer's params and caches are views (a `reshape` of a
+non-contiguous stack would copy, and a cache written in place through a
+copy would lose the write).  `_remat` gives the reference's
 per-block rematerialization: ``"full"`` keeps only each block's inputs
 (`torch.utils.checkpoint`), ``"dots"`` also the outputs of its 2-D
 matrix products (`jax.checkpoint_policies.dots_with_no_batch_dims_saveable`
@@ -45,10 +49,12 @@ class ModelState(NamedTuple):
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.local_global:
+    """The families this module stacks: dense and MoE decoders, and the
+    VLM's backbone (a dense decoder behind a projector)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with local_global="
-            f"{cfg.local_global} is not ported yet (ROADMAP A13)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            f"(ROADMAP A13)")
 
 
 def _dots_policy(ctx, func, *args, **kwargs):
@@ -135,10 +141,29 @@ def block_decode(cfg, p: dict, x, cache: KVCache, *, window, router_H=None):
 # Stacks
 # ---------------------------------------------------------------------------
 
+def _pattern(cfg):
+    """(n_groups, k_local, tail) for the k-local:1-global pattern."""
+    if not cfg.local_global:
+        return 0, 0, 0
+    k = cfg.local_global
+    n_groups = cfg.n_layers // (k + 1)
+    tail = cfg.n_layers - n_groups * (k + 1)
+    return n_groups, k, tail
+
+
 def init_stack(cfg, ini: Init) -> dict:
     _check_family(cfg)
-    return {"layers": init_block(cfg, ini.stacked(cfg.n_layers),
-                                 moe=cfg.family == "moe")}
+    moe = cfg.family == "moe"
+    if cfg.local_global:
+        n_groups, k, tail = _pattern(cfg)
+        p = {
+            "local": init_block(cfg, ini.stacked(n_groups, k), moe=moe),
+            "global": init_block(cfg, ini.stacked(n_groups), moe=moe),
+        }
+        if tail:
+            p["tail"] = init_block(cfg, ini.stacked(tail), moe=moe)
+        return p
+    return {"layers": init_block(cfg, ini.stacked(cfg.n_layers), moe=moe)}
 
 
 def stack_fwd(cfg, p: dict, x, positions, *, remat: str = "full",
@@ -147,18 +172,32 @@ def stack_fwd(cfg, p: dict, x, positions, *, remat: str = "full",
     router_H' [L, E] or None, aux_total).  A rematerialized block's
     forward runs again in the backward (its kernels launch again); what
     that second run returns is dropped, so each layer's H is updated
-    once."""
+    once.  Under the local/global pattern each group runs its k local
+    blocks (``window=cfg.window``), then its global block (no window),
+    then the tail's local blocks; ``router_H`` passes through unchanged,
+    as in the reference, whose pattern serves dense stacks only."""
     _check_family(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    local = _remat(functools.partial(block_fwd, cfg, window=cfg.window),
+                   remat)
+    if cfg.local_global:
+        n_groups, k, tail = _pattern(cfg)
+        glob = _remat(functools.partial(block_fwd, cfg, window=None), remat)
+        for lp_l, lp_g in zip(unstack(p["local"], n_groups),
+                              unstack(p["global"], n_groups)):
+            for lp in unstack(lp_l, k):
+                x, _, _ = local(lp, x, positions)
+            x, _, _ = glob(lp_g, x, positions)
+        for lp in unstack(p["tail"], tail) if tail else ():
+            x, _, _ = local(lp, x, positions)
+        return x, router_H, aux_total
     moe = cfg.family == "moe"
     if moe and router_H is None:
         raise ValueError(f"{cfg.name}: an MoE stack needs router_H [L, E]")
-    body = _remat(functools.partial(block_fwd, cfg, window=cfg.window),
-                  remat)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     H_out = []
     for i, lp in enumerate(unstack(p["layers"], cfg.n_layers)):
-        x, H, aux = body(lp, x, positions,
-                         router_H=router_H[i] if moe else None)
+        x, H, aux = local(lp, x, positions,
+                          router_H=router_H[i] if moe else None)
         aux_total = aux_total + aux
         H_out.append(H)
     return x, (torch.stack(H_out) if moe else router_H), aux_total
@@ -185,8 +224,10 @@ def layer(tree, i: int):
 
 
 def unstack(tree, n: int) -> list:
-    """The ``n`` layers of a stacked tree of dicts, each leaf split by one
-    `unbind` (views, as `layer` gives)."""
+    """The ``n`` layers of a stacked tree of dicts or KVCaches, each leaf
+    split by one `unbind` (views, as `layer` gives)."""
+    if isinstance(tree, KVCache):
+        return [KVCache(*f) for f in zip(*(t.unbind(0) for t in tree))]
     if isinstance(tree, dict):
         per = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: per[k][i] for k in tree} for i in range(n)]
@@ -208,13 +249,16 @@ def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
 
 
 def lm_logits(cfg, params, tokens, *, activ_dtype=torch.bfloat16,
-              remat="full", router_H=None, last_only=False):
-    """tokens [B, S] -> (logits [B, S, V], router_H', aux).
-    ``last_only`` unembeds only the final position (serving prefill).
-    Positions are arange over the sequence, as in the reference.  The
-    reference's ``prefix_embeds`` serves the VLM family, which is not
-    ported."""
+              remat="full", router_H=None, prefix_embeds=None,
+              last_only=False):
+    """tokens [B, S] -> (logits [B, P + S, V], router_H', aux), where
+    ``prefix_embeds`` [B, P, d] (the VLM's projected patches) go in front
+    of the token embeddings.  ``last_only`` unembeds only the final
+    position (serving prefill).  Positions are arange over the whole
+    sequence, prefix included, as in the reference."""
     x = embed(cfg, params["embed"], tokens, activ_dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(activ_dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     x, H_out, aux = stack_fwd(cfg, params["stack"], x, positions,
@@ -240,14 +284,41 @@ def lm_loss(cfg, params, batch, *, activ_dtype=torch.bfloat16,
 
 
 def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):
-    """Stacked caches mirroring the stack structure: {"layers": KVCache}
-    with a leading [L] axis on every field, on ``device`` (CUDA unless the
-    caller asks for the CPU)."""
+    """Stacked caches mirroring the stack structure, every field with the
+    stack's leading axes, on ``device`` (CUDA unless the caller asks for
+    the CPU): {"layers": [L]} or, under the local/global pattern,
+    {"local": [n_groups, k], "global": [n_groups], "tail": [tail]}, whose
+    local and tail caches hold min(window, max_len) slots (a ring) and
+    whose global caches hold max_len."""
     _check_family(cfg)
-    c = init_cache(cfg, batch, max_len, dtype, window=cfg.window,
-                   device=resolve_device(device))
-    return {"layers": KVCache(*(
-        t[None].repeat(cfg.n_layers, *([1] * t.dim())) for t in c))}
+    dev = resolve_device(device)
+
+    def stacked(prefix, window=None):
+        c = init_cache(cfg, batch, max_len, dtype, window=window,
+                       device=dev)
+        return KVCache(*(t.expand(prefix + t.shape).contiguous()
+                         for t in c))
+
+    if cfg.local_global:
+        n_groups, k, tail = _pattern(cfg)
+        caches = {"local": stacked((n_groups, k), window=cfg.window),
+                  "global": stacked((n_groups,))}
+        if tail:
+            caches["tail"] = stacked((tail,), window=cfg.window)
+        return caches
+    return {"layers": stacked((cfg.n_layers,), window=cfg.window)}
+
+
+def cache_axes(tree):
+    """Logical axes for a (possibly stacked) cache tree: a KVCache of axis
+    tuples in place of each KVCache, as the reference's."""
+    def one(c: KVCache):
+        pre = ("layers",) * (c.k.dim() - 4)
+        kv = pre + ("cache_batch", "cache_seq", "act_kv_heads", None)
+        return KVCache(k=kv, v=kv, kpos=pre + ("cache_seq",), pos=pre)
+    if isinstance(tree, KVCache):
+        return one(tree)
+    return {k: cache_axes(v) for k, v in tree.items()}
 
 
 def lm_decode_step(cfg, params, caches, tokens, *,
@@ -256,11 +327,29 @@ def lm_decode_step(cfg, params, caches, tokens, *,
     updated in place (see `attention.decode_attention`)."""
     _check_family(cfg)
     x = embed(cfg, params["embed"], tokens[:, None], activ_dtype)
-    stack, stacked = params["stack"]["layers"], caches["layers"]
-    for i in range(cfg.n_layers):
-        H = None if router_H is None else router_H[i]
-        x, _, _ = block_decode(cfg, layer(stack, i), x, layer(stacked, i),
-                               window=cfg.window, router_H=H)
+    stack = params["stack"]
+    if cfg.local_global:
+        n_groups, k, tail = _pattern(cfg)
+        for lp_l, lp_g, c_l, c_g in zip(
+                unstack(stack["local"], n_groups),
+                unstack(stack["global"], n_groups),
+                unstack(caches["local"], n_groups),
+                unstack(caches["global"], n_groups)):
+            for lp, c in zip(unstack(lp_l, k), unstack(c_l, k)):
+                x, _, _ = block_decode(cfg, lp, x, c, window=cfg.window)
+            x, _, _ = block_decode(cfg, lp_g, x, c_g, window=None)
+        if tail:
+            for lp, c in zip(unstack(stack["tail"], tail),
+                             unstack(caches["tail"], tail)):
+                x, _, _ = block_decode(cfg, lp, x, c, window=cfg.window)
+    else:
+        for i, (lp, c) in enumerate(zip(unstack(stack["layers"],
+                                                cfg.n_layers),
+                                        unstack(caches["layers"],
+                                                cfg.n_layers))):
+            H = None if router_H is None else router_H[i]
+            x, _, _ = block_decode(cfg, lp, x, c, window=cfg.window,
+                                   router_H=H)
     x = norm(cfg, x, params.get("ln_f"))
     logits = unembed(cfg, params["embed"], x)[:, 0, :]
     return logits, caches

@@ -96,7 +96,7 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         get_model(cfg)
     with pytest.raises(KeyError):
-        tconfigs.get_config("gemma3-27b")
+        tconfigs.get_config("xlstm-350m")
 
 
 # ---------------------------------------------------------------------------

@@ -239,9 +239,11 @@ def test_moe_stack_needs_router_queues_and_local_global_is_refused():
     toks = torch.from_numpy(tokens(tcfg))
     with pytest.raises(ValueError, match="router_H"):
         ttransformer.lm_logits(tcfg, tp, toks)
-    gemma = dataclasses.replace(tcfg, family="dense", local_global=5)
+    # the local/global pattern runs since the dense family's slice; a
+    # family still unported is refused, with or without it
+    hybrid = dataclasses.replace(tcfg, family="hybrid", local_global=5)
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ttransformer.stack_fwd(gemma, tp["stack"], torch.zeros(
+        ttransformer.stack_fwd(hybrid, tp["stack"], torch.zeros(
             (B, S, tcfg.d_model)), torch.arange(S)[None])
 
 
