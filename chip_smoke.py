@@ -126,9 +126,16 @@ on failure:
      bound; the families' shapes in both dtypes against the plain version
      and twice bit-identical (gemma3's 32 heads over 16 at D=128 with its
      window 1,024, qwen1.5's G=1 at D=128, seamless's cross-attention
-     S=1 and 512 against T=1,500, not causal); the sm90 kernel at gemma3's
-     global and windowed layers (B=1, S=32,768, D=128): row windows within
-     bf16 rounding, device ms beside the bound and SDPA;
+     S=1 and 512 against T=1,500, not causal; zamba's shared block at head
+     dim 80, 32 heads over 32, S=512 and an odd S=1,000); the sm90 kernel
+     at gemma3's global and windowed layers (B=1, S=32,768, D=128): row
+     windows within bf16 rounding, device ms beside the bound and SDPA;
+     both kernels at head dim 80 (zamba2-2.7b): the sm90 kernel at B=1,
+     S=32,768, bf16 (row windows within bf16 rounding, twice
+     bit-identical, device ms beside D=80's bound and SDPA) and the
+     CUDA-core kernel at the float32 training shape (B=8, S=512; against
+     the plain version, device ms beside its bound, the plain version and
+     SDPA);
  11. the prefill path at full width: granite-moe-1b-a400m (24 layers,
      random float32 weights from a seed) through `make_prefill_step` at
      B=1, S=32,768, bfloat16 activations, 2 timed prefills after a short
@@ -201,7 +208,32 @@ on failure:
      of 4,096 frames and 1,024 tokens (72 sm90 launches), 64 float32
      decode steps against `decode_fwd` within 2e-3 (24 CUDA-core
      cross-attention launches a step at S=1, T=4,096), 3 float32 steps
-     through the launcher (144 CUDA-core launches a step).
+     through the launcher (144 CUDA-core launches a step);
+ 24. zamba2-2.7b at full width and depth, nothing cut (54 mamba layers in 9
+     groups of 6, the shared attention block 9 times at head dim 80;
+     2,340,750,240 bf16 params drawn on the card) through
+     `make_prefill_step` at B=1, S=32,768: 9 sm90 launches a prefill, none
+     of the CUDA-core kernel, finite logits, ms, tokens/s, peak memory, a
+     profiled prefill's device time by group, the SSD core
+     (`models.mamba.ssd`) timed alone at one layer's shapes; the same
+     weights behind `Engine(slots=4, max_len=128)` (8 requests, no flash
+     launch);
+ 25. zamba trained 12 float32 steps through the launcher (B=8, S=512,
+     remat full): 9 CUDA-core launches a step at D=80, falling loss, every
+     leaf a gradient; then at 12 layers in float32 a forward of 320 tokens
+     and the same tokens decoded one by one within 2e-3, and its first
+     mamba layer and the shared block teacher-forced, card against the
+     CPU within 1e-5;
+ 26. xlstm-350m at full width and depth, nothing cut (20 mLSTM + 4 sLSTM
+     blocks, 461,919,392 bf16 params) through `make_prefill_step` at B=1,
+     S=4,096 (cut from 32,768: the mLSTM's [S, S, nh] float32 tensors and
+     one host step per token of the sLSTM), no flash launch (the path runs
+     no TPU kernel), the sLSTM loop's share of the wall time; the Engine;
+ 27. xlstm trained 3 float32 steps through the launcher (B=8, S=512): the
+     sLSTM loops' share of a step; at full depth in float32 a forward of
+     256 tokens and the same tokens decoded one by one within 2e-3; its
+     first mLSTM and sLSTM blocks teacher-forced, card against the CPU
+     within 1e-5.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is
@@ -302,7 +334,9 @@ PREFILL_REF_B, PREFILL_REF_S = 2, 256   # the prefill's card-vs-CPU check
 #: QWEN_PREFILL_S; internvl2's prefill (14 heads over 2, G=7, 256 patches
 #: + 1,024 text rows) and its training rows (256 + 512); seamless's
 #: prefill (encoder, decoder self, cross at 1,024 against 4,096 frames),
-#: its decode (one row against 4,096) and its training (512 rows).
+#: its decode (one row against 4,096) and its training (512 rows); zamba's
+#: shared block at head dim 80 (32 heads over 32): its training rows, an
+#: odd length and the float32 forward of `phase_zamba_decode`.
 FLASH_FAMILY_CASES = (("gemma3 local", 1, 32, 16, 4096, 4096, 128, True, 1024),
                       ("qwen1.5", 1, 40, 40, 2048, 2048, 128, True, None),
                       ("cross S=1", 2, 16, 16, 1, 1500, 64, False, None),
@@ -329,7 +363,19 @@ FLASH_FAMILY_CASES = (("gemma3 local", 1, 32, 16, 4096, 4096, 128, True, 1024),
                       ("seamless train encoder", 2, 16, 16, 512, 512, 64,
                        False, None),
                       ("seamless train decoder", 2, 16, 16, 512, 512, 64,
-                       True, None))
+                       True, None),
+                      ("zamba train", 8, 32, 32, 512, 512, 80, True, None),
+                      ("zamba odd length", 1, 32, 32, 1000, 1000, 80, True,
+                       None),
+                      ("zamba decode check", 1, 32, 32, 320, 320, 80, True,
+                       None))
+#: zamba2-2.7b's attention (its shared block: 32 heads over 32 at head dim
+#: 80), timed beside its bound and SDPA: (B, H, KH, S, D), causal, at the
+#: prefill (bf16, the sm90 kernel; its rows held to a plain computation,
+#: the plain version's scores do not fit) and the float32 training step
+#: (the CUDA-core kernel, against the plain version).
+ZAMBA_FLASH_PREFILL = (1, 32, 32, 32_768, 80)
+ZAMBA_FLASH_TRAIN = (8, 32, 32, 512, 80)
 #: gemma3's attention at the prefill length, timed beside its bound and
 #: SDPA: (B, H, KH, S, D), causal, its global layer and its windowed one.
 GEMMA_FLASH_SHAPE, GEMMA_WINDOW = (1, 32, 16, 32_768, 128), 1024
@@ -347,7 +393,20 @@ DECODE_TOL = 2e-3               # decode against the forward (atol = rtol)
 QWEN_LAYERS, QWEN_PREFILL_S, QWEN_REF_S = 4, 8192, 512
 VLM_TEXT_S, VLM_REF_TEXT_S = 1024, 64
 ENCDEC_FRAMES, ENCDEC_TGT, ENCDEC_DECODE_STEPS = 4096, 1024, 64
-FAMILY_TRAIN_STEPS, FAMILY_TRAIN_S = 3, 512
+FAMILY_TRAIN_STEPS, FAMILY_TRAIN_S, FAMILY_TRAIN_B = 3, 512, 8
+#: Phases 24-27, the last two families at full width: zamba2-2.7b (its
+#: prefill at prefill_32k's length, the Engine, ZAMBA_TRAIN_STEPS float32
+#: training steps at B=8, S=512; float32 decode against the forward over
+#: ZAMBA_DECODE_S tokens at ZAMBA_DECODE_LAYERS layers, 2 groups) and
+#: xlstm-350m (its prefill at XLSTM_PREFILL_S, the Engine, training,
+#: float32 decode at full depth over XLSTM_DECODE_S tokens); teacher-forced
+#: blocks card against the CPU at FAMILY_REF_S tokens.
+ZAMBA_ARCH, XLSTM_ARCH = "zamba2-2.7b", "xlstm-350m"
+ZAMBA_PARAMS, XLSTM_PARAMS = 2_340_750_240, 461_919_392
+ZAMBA_TRAIN_STEPS, ZAMBA_DECODE_LAYERS, ZAMBA_DECODE_S = 12, 12, 320
+XLSTM_PREFILL_S, XLSTM_TRAIN_STEPS, XLSTM_DECODE_S = 4096, 3, 256
+XLSTM_PROFILE_S = 128
+FAMILY_REF_S = 256
 VLM_TRAIN_B, ENCDEC_TRAIN_B = 4, 2
 #: Logits card against CPU at full depth (24 layers), float32: 1e-4 +
 #: 1e-4 |cpu| (phase_serve_ref's LOGIT_ATOL, and as much again relative,
@@ -557,9 +616,9 @@ def phase_build_report(_build) -> None:
         if name == "flash_attention.cu":
             spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
                                                  lines)]
-            check(len(spills) >= 6 and not any(spills),
+            check(len(spills) >= 7 and not any(spills),
                   f"{name}: ptxas reports spill stores {spills} (or fewer "
-                  f"than its 6 instantiations)")
+                  f"than its 7 instantiations)")
             secs = re.findall(re.escape(_build.NVCC_SECONDS) + r" (\S+)",
                               lines) or ["not recorded"]
     from repro_torch.kernels.flash_attention import kernel as K
@@ -3099,6 +3158,9 @@ def phase_flash(dev, peaks):
     families = flash_families(gen, dev)
     errs.extend(families.pop("pairs"))
     families.update(flash_gemma(gen, dev, peaks))
+    zamba = flash_zamba(gen, dev, peaks)
+    errs.extend(zamba.pop("pairs"))
+    families.update(zamba)
     q4, k4, v4 = (t[:, :, :FLASH_PLAIN_S] for t in (q, k, v))
     ms4 = device_ms(lambda: K.flash_attention(q4, k4, v4),
                     match="flash_attention_sm90_kernel<", n=5, warm=1)
@@ -3316,6 +3378,86 @@ def flash_gemma(gen, dev, peaks):
             f"{len(windows)} row windows within {err:.3e} of a plain "
             f"computation, at most {use:.3f} of the bf16 rounding gate")
     return out
+
+
+def flash_zamba(gen, dev, peaks):
+    """Both kernels at head dim 80, zamba's shared block (32 heads over
+    32): the sm90 kernel at ZAMBA_FLASH_PREFILL (bf16, causal), twice
+    bit-identical, the rows of `flash_windows` against a plain float32
+    computation within bf16 rounding (inside FLASH_TOL's 2e-2), device ms
+    beside its bound (D=80's own work at the bf16 tensor-core rate; the
+    kernel runs a 128-column tile) and SDPA (bf16, is_causal); the
+    CUDA-core kernel at ZAMBA_FLASH_TRAIN (float32, causal) against the
+    plain version within FLASH_TOL, twice bit-identical, device ms beside
+    its float32 bound, the plain version and SDPA's float32 kernel.
+    Returns the row's `zamba_*` keys and the (out, plain) pairs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, H, KH, S, D = ZAMBA_FLASH_PREFILL
+    q, k, v = flash_inputs(gen, B, H, KH, S, D, torch.bfloat16, dev)
+    before = K.flash_attention.launches_sm90
+    out = K.flash_attention(q, k, v)
+    check(bits_equal(out, K.flash_attention(q, k, v)) and
+          K.flash_attention.launches_sm90 == before + 2,
+          f"the sm90 kernel at {ZAMBA_FLASH_PREFILL}: two calls differ or "
+          f"did not launch it twice")
+    err, use, windows = check_windows(out, q, k, v, "zamba's prefill shape")
+    del out
+    ms = device_ms(lambda: K.flash_attention(q, k, v),
+                   match="flash_attention_sm90_kernel<", n=5, warm=2)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), n=5, warm=2)
+    nops = 4 * B * H * D * S * (S + 1) // 2
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KH * S * D)
+    bound, by = bound_of(nbytes, nops, peaks, "bfloat16")
+    log(f"kernel flash_attention (sm90) at zamba's prefill shape (B={B}, "
+        f"H={H}, KH={KH}, S={S}, D={D}, bf16, causal; the D=128 tile over "
+        f"80 columns): {ms:.4f} ms on the card ({nops / ms / 1e9:.2f} "
+        f"TFLOP/s of D=80's work), bound {bound:.4f} ms by {by} ({nops} "
+        f"flops, {nbytes} B; zamba_prefill_bound_ms); SDPA (is_causal) "
+        f"{lib:.4f} ms (zamba_prefill_library_ms); {len(windows)} row "
+        f"windows within {err:.3e} of a plain computation, at most "
+        f"{use:.3f} of the bf16 rounding gate; two calls bit-identical")
+    del q, k, v
+    B, H, KH, S, D = ZAMBA_FLASH_TRAIN
+    q, k, v = flash_inputs(gen, B, H, KH, S, D, torch.float32, dev)
+    before = K.flash_attention.launches
+    out = K.flash_attention(q, k, v)
+    again = K.flash_attention(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    check(K.flash_attention.launches == before + 2 and
+          bits_equal(out, again), f"the CUDA-core kernel at "
+          f"{ZAMBA_FLASH_TRAIN}: two calls differ or did not launch it twice")
+    err32 = max_abs_err([(out, ref)])
+    tol = FLASH_TOL["float32"]
+    check(within(out, ref, tol, tol), f"the CUDA-core kernel at "
+          f"{ZAMBA_FLASH_TRAIN} differs from its plain version by "
+          f"{err32:.3e} (tolerance {tol})")
+    ms32 = device_ms(lambda: K.flash_attention(q, k, v),
+                     match="flash_attention_kernel<")
+    plain32 = device_ms(lambda: flash_attention_ref(q, k, v), n=20, warm=3)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib32 = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+    nops32 = 4 * B * H * D * S * (S + 1) // 2
+    bound32, by32 = bound_of(4 * (2 * B * H * S * D + 2 * B * KH * S * D),
+                             nops32, peaks, "float32")
+    log(f"the CUDA-core kernel at zamba's training shape "
+        f"{ZAMBA_FLASH_TRAIN} (B, H, KH, S, D), float32, causal: "
+        f"{ms32:.4f} ms on the card ({nops32 / ms32 / 1e9:.2f} TFLOP/s; "
+        f"{K.occupancy(torch.float32, D)} CTA an SM), bound {bound32:.4f} ms "
+        f"by {by32} ({nops32} flops; zamba_train_f32_bound_ms), plain "
+        f"version {plain32:.4f} ms, SDPA float32 {lib32:.4f} ms; within "
+        f"{err32:.3e} of the plain version, two calls bit-identical")
+    return {"zamba_prefill_ms": ms, "zamba_prefill_bound_ms": bound,
+            "zamba_prefill_library_ms": lib, "zamba_train_f32_ms": ms32,
+            "zamba_train_f32_bound_ms": bound32,
+            "zamba_train_plain_f32_ms": plain32,
+            "zamba_train_library_f32_ms": lib32, "pairs": [(out, ref)]}
 
 
 def first_layer(params):
@@ -4459,7 +4601,7 @@ def phase_gemma3_prefill(dev):
     one, finite [1, 1, 262,144] logits; a profiled prefill; then
     `phase_flash_projections` on the first local layer's q, k, v (row
     windows, with its window).  Returns (cfg, params, sm90 launches); the
-    weights stay for `phase_gemma3_serve`."""
+    weights stay for `phase_family_serve`."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4498,12 +4640,13 @@ def phase_gemma3_prefill(dev):
     return cfg, params, launches["sm90"]
 
 
-def phase_gemma3_serve(dev, cfg, params):
+def phase_family_serve(dev, cfg, params):
     """The Engine (`Engine(slots=4, max_len=128)`, float32 activations, as
-    the reference's) at gemma3-27b's full depth on the bf16 weights of
-    `phase_gemma3_prefill`: 8 requests drawn as `phase_serve` draws them;
-    every request finishes with valid tokens, and no flash launch (decode
-    attends through the einsum `sdpa`, as the reference does).  Prints ms
+    the reference's) at a family's full depth on the bf16 weights of its
+    prefill phase (gemma3-27b, zamba2-2.7b, xlstm-350m): 8 requests drawn
+    as `phase_serve` draws them; every request finishes with valid tokens,
+    and no flash launch (decode attends through the einsum `sdpa`, as the
+    reference does; the recurrent blocks step their states).  Prints ms
     per decode step and a profiled step's activities.  Returns the decode
     steps."""
     import numpy as np
@@ -4511,6 +4654,7 @@ def phase_gemma3_serve(dev, cfg, params):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import Engine
     t0 = time.perf_counter()
+    what = f"{cfg.name} serve"
     eng = Engine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                  device=dev)
     rng = np.random.default_rng(0)
@@ -4525,12 +4669,12 @@ def phase_gemma3_serve(dev, cfg, params):
     wall = time.perf_counter() - t1
     launches, steps = flash_launches(), eng.steps
     check(launches == {"sm90": 0, "simt": 0},
-          f"gemma3 serve: flash launches {launches} at decode, expected none")
+          f"{what}: flash launches {launches} at decode, expected none")
     check(sorted(finished) == list(range(SERVE_REQUESTS)),
-          f"gemma3 serve: served {sorted(finished)} of {SERVE_REQUESTS}")
+          f"{what}: served {sorted(finished)} of {SERVE_REQUESTS}")
     outs = [finished[r].out for r in sorted(finished)]
     check(all(len(o) == SERVE_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
-              for o in outs), f"gemma3 serve: malformed outputs {outs}")
+              for o in outs), f"{what}: malformed outputs {outs}")
     toks = eng._last_tok.copy()
     step_ms = []
     for _ in range(3):
@@ -4541,7 +4685,7 @@ def phase_gemma3_serve(dev, cfg, params):
         step_ms.append((time.perf_counter() - t2) * 1e3)
     check(tuple(logits.shape) == (SERVE_SLOTS, cfg.vocab) and
           bool(torch.isfinite(logits).all()),
-          "gemma3 serve: non-finite or misshapen logits")
+          f"{what}: non-finite or misshapen logits")
     med = statistics.median(step_ms)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4550,7 +4694,7 @@ def phase_gemma3_serve(dev, cfg, params):
     n_act = sum(1 for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
     n_tok = sum(len(o) for o in outs)
-    log(f"gemma3 serve: {len(finished)} requests, {n_tok} tokens, {steps} "
+    log(f"{what}: {len(finished)} requests, {n_tok} tokens, {steps} "
         f"decode steps (prefill included) in {wall:.3f} s: "
         f"{wall / steps * 1e3:.4f} ms per decode step (unprofiled steps "
         f"alone {', '.join(f'{x:.4f}' for x in step_ms)} ms), "
@@ -4918,6 +5062,373 @@ def phase_encdec(dev):
     return launches["sm90"], dec["simt"] + simt
 
 
+def zamba_blocks_against_cpu(cfg, params, x, what: str):
+    """zamba's first mamba layer (its norm and `mamba_fwd`, residual
+    added) and the shared block (`block_fwd`, the flash kernel at D=80 on
+    the card), teacher-forced on ``x``, card against the CPU, float32:
+    each within LAYER_RTOL of its output's largest magnitude.  Returns
+    the two shares."""
+    import torch
+    from repro_torch.models.transformer import layer
+    from repro_torch.models.zamba import _mamba_body
+    lp = layer(layer(params["stack"]["mamba"], 0), 0)
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        yd = _mamba_body(cfg, lp, x)
+        yc = _mamba_body(cfg, to_device_tree(lp, cpu), x.cpu())
+    scale = float(yc.abs().max())
+    d_mamba = max_abs_err([(yd.cpu(), yc)]) / scale
+    check(d_mamba <= LAYER_RTOL, f"{what}, mamba layer 1: card and CPU "
+          f"differ by {d_mamba:.3e} of the output's largest magnitude "
+          f"{scale:.3f} (gate {LAYER_RTOL})")
+    d_shared = block_against_cpu(cfg, params["stack"]["shared"], x,
+                                 window=None, what=f"{what}, shared block")
+    return d_mamba, d_shared
+
+
+def decode_against_forward(api, params, toks, what: str):
+    """The float32 forward of ``toks`` [1, S], then the same tokens decoded
+    one by one from empty caches: each step's logits within DECODE_TOL +
+    DECODE_TOL |forward| of the forward's.  Returns (max abs difference,
+    ms per decode step, the forward's flash launches, the decode's)."""
+    import torch
+    f32, S, dev = torch.float32, toks.shape[1], toks.device
+    reset_flash()
+    with torch.inference_mode():
+        full, _, _ = api.logits(params, {"tokens": toks}, activ_dtype=f32)
+        torch.cuda.synchronize()
+        fwd = flash_launches()
+        reset_flash()
+        caches = api.init_decode(1, S, f32, device=dev)
+        ok = torch.ones(S, dtype=torch.bool, device=dev)
+        diff = torch.zeros(S, device=dev)
+        t1 = time.perf_counter()
+        for t in range(S):
+            lt, caches = api.decode_step(params, caches,
+                                         {"tokens": toks[:, t]},
+                                         activ_dtype=f32)
+            err = (lt - full[:, t]).abs()
+            diff[t] = err.max()
+            ok[t] = (err <= DECODE_TOL + DECODE_TOL * full[:, t].abs()).all()
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t1) / S * 1e3
+    bad = torch.nonzero(~ok).flatten().tolist()
+    check(not bad, f"{what}: decode steps {bad[:10]} differ from the forward "
+          f"by more than {DECODE_TOL} (max {float(diff.max()):.3e})")
+    return float(diff.max()), dec_ms, fwd, flash_launches()
+
+
+def phase_zamba_prefill(dev):
+    """zamba2-2.7b at full width and depth, nothing cut (54 mamba layers in
+    9 groups of 6, the shared attention block applied 9 times, H = KH = 32
+    at head dim 80; 2,340,750,240 params drawn in bf16 on the card) through
+    `make_prefill_step` at B=1, S=32,768 (prefill_32k's length), bf16: a
+    warm-up at S=PREFILL_WARM_S, 2 timed prefills, each 9 sm90 launches
+    (the kernel's D=80 path) and no CUDA-core one, finite [1, 1, 32,000]
+    logits; ms, tokens/s, peak memory, a profiled prefill's device time by
+    group (the SSD's float32 passes fall in "elementwise") and busy share,
+    and the SSD core's device ms at one layer's shapes (`ssd_device_ms`).
+    Returns (cfg, params, sm90 launches); the weights stay for
+    `phase_family_serve`."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.models import get_model
+    from repro_torch.models.zamba import _groups
+    from repro_torch.runtime.step import make_prefill_step
+    t0 = time.perf_counter()
+    cfg, params = family_model(ZAMBA_ARCH, dev, seed=7)
+    n_groups, k = _groups(cfg)
+    check(tree_numel(params) == ZAMBA_PARAMS and (n_groups, k) == (9, 6) and
+          cfg.head_dim == 80 and cfg.n_heads == cfg.n_kv_heads == 32,
+          f"zamba: {tree_numel(params)} params, groups {(n_groups, k)}, "
+          f"head dim {cfg.head_dim}")
+    S = SHAPES["prefill_32k"].seq_len
+    step = make_prefill_step(RunConfig(cfg, SHAPES["prefill_32k"]))
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, S)), device=dev)
+    logits, walls, launches, peak = timed_prefills(
+        step, params, {"tokens": toks}, {"tokens": toks[:, :PREFILL_WARM_S]})
+    check_prefill(cfg, logits, launches, 2 * n_groups, "zamba prefill")
+    med = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            get_model(cfg).logits(params, {"tokens": toks},
+                                  activ_dtype=torch.bfloat16, remat="none",
+                                  last_only=True)
+        torch.cuda.synchronize()
+    ssd_ms = ssd_device_ms(cfg, S, dev)
+    log(f"zamba prefill: B=1, S={S}, bf16, {cfg.n_layers} mamba layers in "
+        f"{n_groups} groups + the shared block {n_groups} times, 2 prefills "
+        f"{', '.join(f'{w:.4f}' for w in walls)} ms: {med:.4f} ms per "
+        f"prefill, {S / med * 1e3:.2f} prefill tokens/s; launches {launches} "
+        f"(sm90 at D=80, CUDA-core); peak device memory {peak:.2f} GiB "
+        f"({time.perf_counter() - t0:.1f} s with the draw); profiled "
+        f"prefill (the SSD's float32 passes are in elementwise): "
+        f"{profile_summary(prof, med, top_n=8)}; the SSD core alone "
+        f"(`models.mamba.ssd`, one layer's shapes, bf16 inputs) "
+        f"{ssd_ms:.4f} ms a layer on the card, {cfg.n_layers} layers "
+        f"{cfg.n_layers * ssd_ms:.2f} ms, "
+        f"{cfg.n_layers * ssd_ms / med:.4f} of a prefill")
+    return cfg, params, launches["sm90"]
+
+
+def ssd_device_ms(cfg, S: int, dev) -> float:
+    """Device ms of one call of `models.mamba.ssd` at one zamba layer's
+    shapes at sequence length ``S`` (B=1), on random bf16 inputs and
+    float32 log decays of a softplus'd dt's size."""
+    import torch
+    from repro_torch.models.mamba import dims, ssd
+    _, nh, ns, hd = dims(cfg)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    xbar = torch.randn((1, S, nh, hd), generator=gen, device=dev).bfloat16()
+    Bm, Cm = (torch.randn((1, S, ns), generator=gen, device=dev).bfloat16()
+              for _ in range(2))
+    loga = -torch.nn.functional.softplus(torch.randn(
+        (1, S, nh), generator=gen, device=dev))
+    with torch.inference_mode():
+        return device_ms(lambda: ssd(xbar, Bm, Cm, loga, cfg.ssm_chunk),
+                         n=3, warm=1)
+
+
+def phase_zamba_train(dev):
+    """zamba2-2.7b at full width trained ZAMBA_TRAIN_STEPS float32 steps
+    through the launcher (`launch.train.main`: B=FAMILY_TRAIN_B, S=512,
+    remat full; params, gradients and AdamW moments ≈ 37 GB): 9 CUDA-core
+    flash launches a step at D=80 (the shared block is not rematerialized,
+    as in the reference; its backward is plain torch), none of the sm90
+    kernel, finite losses falling (the last below the first), after step 1
+    a finite, non-zero gradient on every leaf.  Returns the CUDA-core
+    launches of all steps."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, _, simt = train_family(ZAMBA_ARCH, FAMILY_TRAIN_B, (9, 0, 0),
+                                       steps=ZAMBA_TRAIN_STEPS)
+    check(losses[-1] < losses[0], f"zamba training: losses {losses} do not "
+          f"fall")
+    med = statistics.median(ms[1:])
+    tokens = FAMILY_TRAIN_B * FAMILY_TRAIN_S
+    log(f"zamba train: float32, B={FAMILY_TRAIN_B}, S={FAMILY_TRAIN_S}, "
+        f"remat full, {ZAMBA_TRAIN_STEPS} steps through launch.train.main: "
+        f"losses {', '.join(f'{x:.5f}' for x in losses)}; {med:.4f} ms per "
+        f"step (median of steps 2-{ZAMBA_TRAIN_STEPS}; all "
+        f"{', '.join(f'{x:.1f}' for x in ms)}), {tokens / med * 1e3:.2f} "
+        f"tokens/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; 9 CUDA-core "
+        f"flash launches a step (D=80), every leaf a finite, non-zero "
+        f"gradient after step 1 ({time.perf_counter() - t0:.1f} s)")
+    return simt
+
+
+def phase_zamba_decode(dev):
+    """zamba2-2.7b at full width, depth cut to ZAMBA_DECODE_LAYERS (2
+    groups), float32: the forward of ZAMBA_DECODE_S tokens (2 CUDA-core
+    launches at D=80; the length pads the last 128-token chunk) and the
+    same tokens decoded one by one, each step within DECODE_TOL of the
+    forward, no flash launch at decode; then the first mamba layer and the
+    shared block teacher-forced on the embedded tokens, card against the
+    CPU within LAYER_RTOL.  Returns the forward's CUDA-core launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.models.common import embed
+    t0 = time.perf_counter()
+    cfg, params = family_model(ZAMBA_ARCH, dev, n_layers=ZAMBA_DECODE_LAYERS,
+                               dtype="float32", seed=8)
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab, (1, ZAMBA_DECODE_S)), device=dev)
+    diff, dec_ms, fwd, dec = decode_against_forward(get_model(cfg), params,
+                                                    toks, "zamba")
+    n_groups = cfg.n_layers // cfg.attn_every
+    check(fwd == {"sm90": 0, "simt": n_groups} and
+          dec == {"sm90": 0, "simt": 0},
+          f"zamba decode: flash launches {fwd} in the forward (expected "
+          f"{n_groups} CUDA-core), {dec} at decode (expected none)")
+    with torch.inference_mode():
+        x = embed(cfg, params["embed"], toks[:, :FAMILY_REF_S],
+                  torch.float32)
+    d_mamba, d_shared = zamba_blocks_against_cpu(cfg, params, x,
+                                                 "zamba teacher-forced")
+    log(f"zamba decode: {cfg.n_layers} layers float32, forward at "
+        f"S={ZAMBA_DECODE_S} (launches {fwd}), {ZAMBA_DECODE_S} decode steps "
+        f"at {dec_ms:.4f} ms a step, every step within {diff:.3e} of the "
+        f"forward (gate {DECODE_TOL}); teacher-forced at S={FAMILY_REF_S}, "
+        f"card vs CPU: mamba layer 1 {d_mamba:.3e}, the shared block "
+        f"{d_shared:.3e} of their largest output (gate {LAYER_RTOL}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return fwd["simt"]
+
+
+class ScanTimer:
+    """Wraps `models.xlstm.slstm_scan` (``with ScanTimer() as t:``): each
+    call's wall ms, synchronised before and after, in ``t.ms``."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import xlstm
+        self.ms, self.original = [], xlstm.slstm_scan
+
+        def timed_scan(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.original(*args)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        xlstm.slstm_scan = timed_scan
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import xlstm
+        xlstm.slstm_scan = self.original
+
+
+def phase_xlstm(dev):
+    """xlstm-350m at full width and depth, nothing cut (4 groups of 5
+    mLSTM + 1 sLSTM blocks, 461,919,392 params drawn in bf16): a bf16
+    `make_prefill_step` at B=1, S=XLSTM_PREFILL_S (cut from 32,768: the
+    mLSTM's parallel form holds [S, S, nh] float32 tensors, 17.2 GB each
+    there, and the sLSTM steps once per token), 2 timed prefills, no flash
+    launch (this path runs no TPU kernel: both blocks are plain torch, as
+    they are plain JAX in the reference), finite logits; the sLSTM loop's
+    share of a prefill's wall time (`ScanTimer`), a profiled prefill of
+    XLSTM_PROFILE_S tokens; then
+    `phase_family_serve` on the same weights.  Returns the Engine's
+    decode steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.models import get_model
+    from repro_torch.models.xlstm import _groups
+    from repro_torch.runtime.step import make_prefill_step
+    t0 = time.perf_counter()
+    cfg, params = family_model(XLSTM_ARCH, dev, seed=9)
+    check(tree_numel(params) == XLSTM_PARAMS and _groups(cfg) == (4, 5),
+          f"xlstm: {tree_numel(params)} params, groups {_groups(cfg)}")
+    S = XLSTM_PREFILL_S
+    step = make_prefill_step(RunConfig(cfg, SHAPES["prefill_32k"]))
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab, (1, S)), device=dev)
+    with ScanTimer() as scan:
+        logits, walls, launches, peak = timed_prefills(
+            step, params, {"tokens": toks}, {"tokens": toks[:, :256]})
+    check_prefill(cfg, logits, launches, 0, "xlstm prefill")
+    n_s = cfg.n_layers // cfg.slstm_every
+    loop = [sum(scan.ms[i:i + n_s]) for i in range(n_s, 3 * n_s, n_s)]
+    med = statistics.median(walls)
+    # Profiled at XLSTM_PROFILE_S tokens: a whole prefill traces ~400,000
+    # activities (25 a token per sLSTM block), and the trace costs minutes.
+    short = toks[:, :XLSTM_PROFILE_S]
+    with torch.inference_mode():
+        get_model(cfg).logits(params, {"tokens": short},
+                              activ_dtype=torch.bfloat16, remat="none",
+                              last_only=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        get_model(cfg).logits(params, {"tokens": short},
+                              activ_dtype=torch.bfloat16, remat="none",
+                              last_only=True)
+    torch.cuda.synchronize()
+    short_ms = (time.perf_counter() - t1) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            get_model(cfg).logits(params, {"tokens": short},
+                                  activ_dtype=torch.bfloat16, remat="none",
+                                  last_only=True)
+        torch.cuda.synchronize()
+    log(f"xlstm prefill: B=1, S={S}, bf16, {cfg.n_layers} blocks (4 x (5 "
+        f"mLSTM + 1 sLSTM)), 2 prefills {', '.join(f'{w:.4f}' for w in walls)}"
+        f" ms: {med:.4f} ms per prefill, {S / med * 1e3:.2f} prefill "
+        f"tokens/s; the sLSTM loops ({n_s} x {S} steps) "
+        f"{', '.join(f'{x:.4f}' for x in loop)} ms, "
+        f"{', '.join(f'{x / w:.4f}' for x, w in zip(loop, walls))} of the "
+        f"prefills' wall time; launches {launches}: this path runs no TPU "
+        f"kernel (the reference's xLSTM is plain JAX); peak device memory "
+        f"{peak:.2f} GiB ({time.perf_counter() - t0:.1f} s with the draw); "
+        f"a prefill of {XLSTM_PROFILE_S} tokens, {short_ms:.4f} ms, "
+        f"profiled: {profile_summary(prof, short_ms, top_n=6)}")
+    steps = phase_family_serve(dev, cfg, params)
+    del params
+    return steps
+
+
+def phase_xlstm_train(dev):
+    """xlstm-350m at full width trained XLSTM_TRAIN_STEPS float32 steps
+    through the launcher (B=FAMILY_TRAIN_B, S=512, remat full): no flash
+    launch, finite losses, after step 1 a finite, non-zero gradient on
+    every leaf; the sLSTM loops' share of each step's wall time (their
+    forward passes, twice a step under full remat; the loop's backward runs
+    in autograd and is not in it); then xlstm at full depth in float32:
+    the forward of XLSTM_DECODE_S tokens and the same tokens decoded one by
+    one, each step within DECODE_TOL of the forward; the first mLSTM and
+    sLSTM blocks teacher-forced on the embedded tokens, card against the
+    CPU within LAYER_RTOL."""
+    import numpy as np
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.models.common import embed
+    from repro_torch.models.transformer import layer
+    from repro_torch.models.xlstm import mlstm_fwd, slstm_fwd
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    with ScanTimer() as scan:
+        losses, ms, _, _ = train_family(XLSTM_ARCH, FAMILY_TRAIN_B,
+                                        (0, 0, 0), steps=XLSTM_TRAIN_STEPS)
+    n_loops = 2 * (cfg.n_layers // cfg.slstm_every)  # twice a step each
+    per_step = [sum(scan.ms[i:i + n_loops])
+                for i in range(0, len(scan.ms), n_loops)]
+    tokens = FAMILY_TRAIN_B * FAMILY_TRAIN_S
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg, params = family_model(XLSTM_ARCH, dev, dtype="float32", seed=10)
+    toks = torch.as_tensor(np.random.default_rng(10).integers(
+        0, cfg.vocab, (1, XLSTM_DECODE_S)), device=dev)
+    diff, dec_ms, fwd, dec = decode_against_forward(get_model(cfg), params,
+                                                    toks, "xlstm")
+    check(fwd == dec == {"sm90": 0, "simt": 0},
+          f"xlstm decode: flash launches {fwd}, {dec}, expected none")
+    stack = params["stack"]
+    with torch.inference_mode():
+        x = embed(cfg, params["embed"], toks[:, :FAMILY_REF_S],
+                  torch.float32)
+    shares = []
+    for name, fwd_fn, lp in (
+            ("mLSTM block 1", mlstm_fwd, layer(layer(stack["mlstm"], 0), 0)),
+            ("sLSTM block 6", slstm_fwd, layer(stack["slstm"], 0))):
+        with torch.inference_mode():
+            yd = fwd_fn(cfg, lp, x)
+            yc = fwd_fn(cfg, to_device_tree(lp, torch.device("cpu")),
+                        x.cpu())
+        scale = float(yc.abs().max())
+        d = max_abs_err([(yd.cpu(), yc)]) / scale
+        check(d <= LAYER_RTOL, f"xlstm {name}: card and CPU differ by "
+              f"{d:.3e} of the output's largest magnitude {scale:.3f} (gate "
+              f"{LAYER_RTOL})")
+        shares.append(f"{name} {d:.3e}")
+    log(f"xlstm train: float32, B={FAMILY_TRAIN_B}, S={FAMILY_TRAIN_S}, "
+        f"remat full, {XLSTM_TRAIN_STEPS} steps through launch.train.main: "
+        f"losses {', '.join(f'{x:.5f}' for x in losses)}; ms per step "
+        f"{', '.join(f'{x:.1f}' for x in ms)} "
+        f"({tokens / statistics.median(ms) * 1e3:.2f} tokens/s at the "
+        f"median); the sLSTM loops' forward passes "
+        f"{', '.join(f'{x:.1f}' for x in per_step)} ms a step, "
+        f"{', '.join(f'{x / w:.4f}' for x, w in zip(per_step, ms))} of its "
+        f"wall time; peak device memory {peak:.2f} GiB; no flash launch; "
+        f"float32 decode at full depth: forward at S={XLSTM_DECODE_S}, "
+        f"{XLSTM_DECODE_S} decode steps at {dec_ms:.4f} ms a step, every "
+        f"step within {diff:.3e} of the forward (gate {DECODE_TOL}); "
+        f"teacher-forced at S={FAMILY_REF_S}, card vs CPU: "
+        f"{', '.join(shares)} of their largest output (gate {LAYER_RTOL}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def to_device_tree(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device_tree(v, dev) for k, v in tree.items()}
@@ -5016,27 +5527,34 @@ def main() -> int:
     # it is driven and read just after (inside each phase).
     t_fam, phase_s = time.perf_counter(), {}
 
-    def timed(fn, *args):
+    def timed(fn, *args, label=None):
         gc.collect()
         torch.cuda.empty_cache()
         t_phase = time.perf_counter()
         out = fn(*args)
-        phase_s[fn.__name__] = time.perf_counter() - t_phase
+        phase_s[label or fn.__name__] = time.perf_counter() - t_phase
         return out
 
     cfg_g, params_g, gemma_sm90 = timed(phase_gemma3_prefill, dev)
-    timed(phase_gemma3_serve, dev, cfg_g, params_g)
+    timed(phase_family_serve, dev, cfg_g, params_g)
     del params_g
     simt_launches += timed(phase_gemma3_window, dev)
     qwen_sm90 = timed(phase_qwen15, dev)
     vlm_sm90, vlm_simt = timed(phase_vlm, dev)
     ed_sm90, ed_simt = timed(phase_encdec, dev)
+    cfg_z, params_z, zamba_sm90 = timed(phase_zamba_prefill, dev)
+    timed(phase_family_serve, dev, cfg_z, params_z, label="zamba_serve")
+    del params_z
+    zamba_simt = timed(phase_zamba_train, dev)
+    zamba_simt += timed(phase_zamba_decode, dev)
+    timed(phase_xlstm, dev)
+    timed(phase_xlstm_train, dev)
     log("family phases: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in phase_s.items()) +
         f"; {time.perf_counter() - t_fam:.1f} s in all")
     launches["flash_attention"] += gemma_sm90 + qwen_sm90 + vlm_sm90 + \
-        ed_sm90
-    simt_launches += vlm_simt + ed_simt
+        ed_sm90 + zamba_sm90
+    simt_launches += vlm_simt + ed_simt + zamba_simt
     rows["flash_attention"]["simt_f32_launches"] = simt_launches
     rows["flash_attention"]["path"] = (
         "sm90 (launches): 24 per prefill (phase_prefill), 24 per bfloat16 "
@@ -5048,7 +5566,11 @@ def main() -> int:
         "gemma3 at 8 layers, 8 per float32 forward (phase_gemma3_window); "
         "internvl2-1b 48 per float32 training step (phase_vlm); seamless "
         "24 cross-attention launches per decode step and 144 per float32 "
-        "training step (phase_encdec)")
+        "training step (phase_encdec); zamba2-2.7b at head dim 80: sm90 9 "
+        "per prefill at S=32,768 (phase_zamba_prefill), CUDA-core 9 per "
+        "float32 training step (phase_zamba_train) and 2 per float32 "
+        "forward at 12 layers (phase_zamba_decode); xlstm-350m launches "
+        "none (its blocks are plain torch, phase_xlstm)")
     launches["bp_topk_route"] += train_launches["bp_topk_route"]
     rows["bp_topk_route"]["path"] = (
         "Engine decode steps (phase_serve); 24 more per prefill "
@@ -5068,7 +5590,9 @@ def main() -> int:
     # float32 time, bound and training launches, and SDPA's float32 time,
     # at the prefill shape and at the training shape (`_train_`, with the
     # plain version's time there), and the sm90 kernel's time, bound and
-    # SDPA's at gemma3's global and windowed layers (`gemma_`);
+    # SDPA's at gemma3's global and windowed layers (`gemma_`) and at
+    # zamba's head dim 80, the sm90 kernel at its prefill and the
+    # CUDA-core kernel at its float32 training step (`zamba_`);
     # the bp_slot, bp_topk and flash rows name the paths that launched
     # them.
     shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms",
@@ -5077,7 +5601,11 @@ def main() -> int:
              "library_f32_train_ms", "simt_f32_train_bound_ms",
              "gemma_global_ms", "gemma_global_bound_ms",
              "gemma_global_library_ms", "gemma_window_ms",
-             "gemma_window_bound_ms", "gemma_window_library_ms", "path")
+             "gemma_window_bound_ms", "gemma_window_library_ms",
+             "zamba_prefill_ms", "zamba_prefill_bound_ms",
+             "zamba_prefill_library_ms", "zamba_train_f32_ms",
+             "zamba_train_f32_bound_ms", "zamba_train_plain_f32_ms",
+             "zamba_train_library_f32_ms", "path")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}
     for r in table["kernels"]:

@@ -1,26 +1,25 @@
 """Config registry of the ported architectures: `get_config(arch_id)`.
 
-Only the configurations whose family the port runs are here: dense
-(with gemma3's local/global pattern), MoE, the VLM and the
-encoder-decoder.  zamba2-2.7b (hybrid) and xlstm-350m (ssm) follow with
-their families (ROADMAP A13).  `paper_grid.problem(C)` is the paper's own
-network instance.
+Every configuration of the reference: dense (with gemma3's
+local/global pattern), MoE, the VLM, the encoder-decoder, the Mamba2 +
+shared-attention hybrid (zamba2-2.7b) and xLSTM (xlstm-350m).
+`paper_grid.problem(C)` is the paper's own network instance.
 """
 from . import (gemma3_27b, granite_moe_1b_a400m, internvl2_1b,
                moonshot_v1_16b_a3b, olmo_1b, qwen2_05b, qwen15_32b,
-               seamless_m4t_large_v2)
+               seamless_m4t_large_v2, xlstm_350m, zamba2_2p7b)
 from .base import SHAPES, ModelConfig, RunConfig, ShapeConfig, reduced
 
 _MODULES = (gemma3_27b, olmo_1b, qwen15_32b, qwen2_05b, moonshot_v1_16b_a3b,
-            granite_moe_1b_a400m, seamless_m4t_large_v2, internvl2_1b)
+            granite_moe_1b_a400m, zamba2_2p7b, xlstm_350m,
+            seamless_m4t_large_v2, internvl2_1b)
 
 ARCHS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
-                       f"ported: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch]
 
 

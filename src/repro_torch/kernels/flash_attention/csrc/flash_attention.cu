@@ -47,8 +47,9 @@
 //     holds rows 16 w + rg + 4 i (i < 4).  In S = Q K^T it holds keys
 //     kg + 8 c (c < BK / 8 = 4): per 4 dims, 4 float4 loads of K and 4 of
 //     Q feed 64 FMAs (8 per 16-byte load).  In O += P V it holds D / 8 dims
-//     of its 4 rows, (8 c + kg) VW .. + VW, VW = min(4, D / 8): per 4 keys,
-//     4 float4 loads of P and 4 D / 32 vector loads of V feed 16 D / 8 FMAs
+//     of its 4 rows, (8 c + kg) VW .. + VW, VW = 4 when 4 divides D / 8,
+//     else 2 (D = 16: 2; D = 80: 2 x 5 per lane): per 4 keys, 4 float4
+//     loads of P and 4 D / (8 VW) vector loads of V feed 16 D / 8 FMAs
 //     (D = 64: 128 FMAs, 12 loads).  The row max is reduced over the row's
 //     8 lanes by __shfl_xor_sync; l is kept per lane and summed once at
 //     the end.  P passes from the S layout to the O layout through the
@@ -79,7 +80,8 @@
 //     order: no split over keys, no atomics, so a repeat is bit-identical.
 //   * Registers and occupancy: __launch_bounds__(256, 2) at D <= 64 (at
 //     most 128 registers a thread, two CTAs an SM: 16 warps; shared memory
-//     88 KB a CTA at D = 64), (256, 1) at D = 128 (152 KB).  The copy and
+//     88 KB a CTA at D = 64), (256, 1) at D = 80 (104 KB) and D = 128 (152
+//     KB).  The copy and
 //     staging loops are kept rolled, which leaves ptxas no spill at 128
 //     registers.  ptxas -v (kernels/_build.py) reports registers and
 //     spills; chip_smoke.py fails on a spill store and reports the CTAs
@@ -101,8 +103,10 @@
 // version (ref.py), which it matches to rounding, and its build leaves
 // multiply-adds free to fuse (no -fmad=false).
 //
-// Instantiated: head dims 16, 32, 64 and 128 in float32; 16 and 32 in
-// bfloat16.  The C entry launches on the caller's stream and returns
+// Instantiated: head dims 16, 32, 64, 80 (zamba2's shared attention) and
+// 128 in float32; 16 and 32 in bfloat16.  Nothing here needs a power of
+// two: D / 4 (Q staging, S's dims, the copies) and D / 8 / VW (O's
+// vectors) are whole for each.  The C entry launches on the caller's stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it does not
 // instantiate), which the ctypes wrapper turns into an exception.
 
@@ -137,7 +141,8 @@ struct Cfg {
   static constexpr int QSTR = D + 4;             // floats per row of Q
   static constexpr int KSTR = D + EPC;           // elements per K/V row
   static constexpr int DL = D / 8;               // dims of a lane in O
-  static constexpr int VW = DL < 4 ? DL : 4;     // its vector width
+  static constexpr int VW = DL % 4 == 0 ? 4 : 2; // its vector width
+  static_assert(D % 8 == 0 && DL % VW == 0, "head dim");
   static constexpr size_t Q_BYTES = (size_t)ROWS * QSTR * 4;
   static constexpr size_t KV_BYTES = (size_t)NSTAGE * BK * KSTR * sizeof(T);
   static constexpr size_t P_BYTES = (size_t)NW * WROWS * PSTR * 4;
@@ -483,7 +488,7 @@ struct Occupancy {
   }
 };
 
-// f.run<D, T>() for the six instantiated (dtype, D) pairs.
+// f.run<D, T>() for the seven instantiated (dtype, D) pairs.
 template <typename F>
 int dispatch(int dtype, int D, const F& f) {
   using bf16 = __nv_bfloat16;
@@ -492,6 +497,7 @@ int dispatch(int dtype, int D, const F& f) {
       case 16: return f.template run<16, float>();
       case 32: return f.template run<32, float>();
       case 64: return f.template run<64, float>();
+      case 80: return f.template run<80, float>();
       case 128: return f.template run<128, float>();
     }
   } else if (dtype == 1) {

@@ -2,9 +2,9 @@
 // for both products, K/V tiles staged by TMA through a shared-memory ring.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention
-// (body _flash_kernel) for bfloat16 inputs with head dim 64 or 128; the
-// wrapper (kernel.py) sends float32 and other head dims to the CUDA-core
-// kernel flash_attention.cu.  It computes what that kernel and the
+// (body _flash_kernel) for bfloat16 inputs with head dim 64, 80 or 128;
+// the wrapper (kernel.py) sends float32 and other head dims to the
+// CUDA-core kernel flash_attention.cu.  It computes what that kernel and the
 // reference compute.  For q [B, H, S, D] and k, v [B, KH, T, D], query head
 // h reads kv head h / (H / KH), and query i sees key j when j < T, j <= i
 // (causal) and j > i - window (window >= 0).  Masked keys get p = 0, rows
@@ -58,7 +58,15 @@
 //     wgmma reads through its transpose bit.  In the descriptor, SBO = 1024
 //     bytes (8 keys) and LBO = the next 64-column panel.
 //   * Epilogue: O / max(l, 1e-30) stored as bf16x2 through out's strides;
-//     rows >= S are not stored.
+//     rows >= S and columns >= d_valid are not stored.
+//   * Head dim 80 (zamba2's shared attention) runs the D = 128 kernel over
+//     tensor maps whose global extent is 80 columns: the second panel's
+//     box (columns 64-127) reads 16 columns and TMA fills the other 48
+//     with zeros.  Zero columns of Q and K leave Q K^T exact, zero columns
+//     of V give zero output columns, which the epilogue does not store
+//     (d_valid = 80).  The tensor cores do 128/80 = 1.6x the work of the
+//     head dim; a 80-wide tile (m64n80 for P V, five 16-column k-steps for
+//     Q K^T in a panel of its own) is left for later.
 // Each warpgroup waits for its own products, so its softmax overlaps only
 // the other warpgroup's products.  Left for later: overlapping a tile's
 // softmax with the next tile's products in the same warpgroup, with the
@@ -98,6 +106,7 @@ struct Cfg {
 
 struct Params {
   int S, T, G, causal, window;  // window < 0: no window
+  int d_valid;                  // columns of out to store (<= D)
   float scale_log2;             // 1/sqrt(D) * log2(e)
   __nv_bfloat16* o;
   int64_t ob, oh, os;           // out's batch, head, sequence strides
@@ -507,9 +516,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       __nv_bfloat16* orow = p.o + b * p.ob + h * p.oh + row * p.os;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] / den,
-                                  o[4 * j + 2 * r + 1] / den);
+        if (8 * j < p.d_valid)  // d_valid is a multiple of 8
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
+              __floats2bfloat162_rn(o[4 * j + 2 * r] / den,
+                                    o[4 * j + 2 * r + 1] / den);
     }
   }
 }
@@ -540,7 +550,8 @@ static EncodeTiled encode_tiled() {
 }
 
 // The 4-D map (D, rows, heads, batch) of a bf16 tensor with element strides
-// st = (batch, head, sequence), read in boxes of 64 columns x box_rows.
+// st = (batch, head, sequence), read in boxes of 64 columns x box_rows
+// (columns past D read as zeros).
 static int encode(EncodeTiled fn, CUtensorMap* map, const void* base, int D,
                   int rows, int heads, int B, const long long* st,
                   int box_rows) {
@@ -560,6 +571,7 @@ static int encode(EncodeTiled fn, CUtensorMap* map, const void* base, int D,
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
+// The D-column kernel over tensors of p.d_valid <= D columns.
 template <int D>
 static int launch(const void* q, const void* k, const void* v, int B, int H,
                   int KH, const long long* strides, Params p,
@@ -568,9 +580,10 @@ static int launch(const void* q, const void* k, const void* v, int B, int H,
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  int err = encode(fn, &tq, q, D, p.S, H, B, strides, BQ);
-  if (!err) err = encode(fn, &tk, k, D, p.T, KH, B, strides + 3, C::BK);
-  if (!err) err = encode(fn, &tv, v, D, p.T, KH, B, strides + 6, C::BK);
+  const int dv = p.d_valid;
+  int err = encode(fn, &tq, q, dv, p.S, H, B, strides, BQ);
+  if (!err) err = encode(fn, &tk, k, dv, p.T, KH, B, strides + 3, C::BK);
+  if (!err) err = encode(fn, &tv, v, dv, p.T, KH, B, strides + 6, C::BK);
   if (err) return err;
   const int smem = C::SMEM + 1024;  // + room to align to 1024 bytes
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -585,8 +598,8 @@ static int launch(const void* q, const void* k, const void* v, int B, int H,
 
 extern "C" {
 
-// bfloat16 q [B, H, S, D], k/v [B, KH, T, D], out [B, H, S, D], D = 64 or
-// 128.  strides: 12 element strides, (batch, head, sequence) of q, k, v and
+// bfloat16 q [B, H, S, D], k/v [B, KH, T, D], out [B, H, S, D], D = 64, 80
+// (through the D = 128 kernel) or 128.  strides: 12 element strides, (batch, head, sequence) of q, k, v and
 // out; each of q, k, v must be 16-byte aligned with strides of a multiple of
 // 8 elements (the tensor maps').  window < 0: no window.
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
@@ -601,6 +614,7 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   p.G = H / KH;
   p.causal = causal;
   p.window = window;
+  p.d_valid = D;
   p.scale_log2 = scale * LOG2E;
   p.o = (__nv_bfloat16*)o;
   p.ob = strides[9];
@@ -608,7 +622,8 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   p.os = strides[11];
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 64) return launch<64>(q, k, v, B, H, KH, strides, p, s);
-  if (D == 128) return launch<128>(q, k, v, B, H, KH, strides, p, s);
+  if (D == 80 || D == 128)
+    return launch<128>(q, k, v, B, H, KH, strides, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

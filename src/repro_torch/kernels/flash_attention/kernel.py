@@ -11,10 +11,13 @@ dtypes, device and strides, then:
 
 The kernel is chosen by dtype and head dim only:
 
-  * bfloat16 with D in {64, 128}: `csrc/flash_attention_sm90.cu`, both
-    products on the bf16 tensor cores (wgmma, K/V staged by TMA), 128-query
-    x 64- or 128-key tiles;
-  * float32 (D in {16, 32, 64, 128}) and bfloat16 with D in {16, 32}:
+  * bfloat16 with D in {64, 80, 128}: `csrc/flash_attention_sm90.cu`,
+    both products on the bf16 tensor cores (wgmma, K/V staged by TMA),
+    128-query x 64- or 128-key tiles; D = 80 runs the D = 128 kernel over
+    tensor maps 80 columns wide (TMA fills the rest of the tile with
+    zeros, and the store is bounded to 80 columns), so q, k and v are
+    passed as they are, with no padded copy;
+  * float32 (D in {16, 32, 64, 80, 128}) and bfloat16 with D in {16, 32}:
     `csrc/flash_attention.cu`, the CUDA-core kernel: one CTA of 256
     threads per (batch row, kv head, query block) covering up to 8 of the
     query heads that share the kv head (128 (head, query) rows), register
@@ -53,8 +56,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"            # the CUDA-core kernel
 SOURCE_SM90 = CSRC / "flash_attention_sm90.cu"  # the tensor-core kernel
 #: Head dims each kernel instantiates, by dtype.
-HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (16, 32)}
-HEAD_DIMS_SM90 = (64, 128)                      # bfloat16 only
+HEAD_DIMS = {torch.float32: (16, 32, 64, 80, 128), torch.bfloat16: (16, 32)}
+HEAD_DIMS_SM90 = (64, 80, 128)                  # bfloat16 only
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -89,6 +92,18 @@ def uses_sm90(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether a CUDA call of this dtype and head dim runs the sm90
     kernel (else the CUDA-core kernel)."""
     return dtype == torch.bfloat16 and head_dim in HEAD_DIMS_SM90
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of this dtype and head dim launches: "sm90"
+    or "cuda-core"; ValueError for a head dim that neither instantiates."""
+    if uses_sm90(dtype, head_dim):
+        return "sm90"
+    if head_dim in HEAD_DIMS[dtype]:
+        return "cuda-core"
+    raise ValueError(f"flash_attention: head dim {head_dim} in {dtype} is "
+                     f"not one of the kernels' {HEAD_DIMS[dtype]} or, in "
+                     f"bfloat16, {HEAD_DIMS_SM90}")
 
 
 def async_copy_ready(t: torch.Tensor) -> bool:
@@ -150,8 +165,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, H, S, D], k/v [B, KH, T, D] (float32 or bfloat16, head dim
     contiguous) -> [B, H, S, D] in q's dtype: causal GQA attention with an
     optional sliding window, float32 math (see `ref.flash_attention_ref`).
-    On CUDA, bfloat16 with D in {64, 128} runs the sm90 kernel and
-    everything else the CUDA-core kernel (see the module's docstring)."""
+    On CUDA, bfloat16 with D in {64, 80, 128} runs the sm90 kernel and
+    the other instantiated head dims the CUDA-core kernel (see the
+    module's docstring); any other head dim raises."""
     _check(q, k, v)
     if window is not None and window < 0:
         raise ValueError(f"window={window} must be None or >= 0")
@@ -162,11 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: unsupported device {dev}")
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
-    sm90 = uses_sm90(q.dtype, D)
-    if not sm90 and D not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"flash_attention: head dim {D} in {q.dtype} is "
-                         f"not one of the kernels' {HEAD_DIMS[q.dtype]} or, "
-                         f"in bfloat16, {HEAD_DIMS_SM90}")
+    sm90 = kernel_for(q.dtype, D) == "sm90"
     if T == 0 or q.numel() == 0:     # no key for any row, or no row: 0
         return torch.zeros_like(q)
     if sm90:
@@ -190,7 +202,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _flash_sm90(q, k, v, *, causal, window):
-    """The sm90 kernel on CUDA bfloat16 tensors with D in {64, 128}."""
+    """The sm90 kernel on CUDA bfloat16 tensors with D in
+    HEAD_DIMS_SM90."""
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
     q, k, v = (t if tma_ready(t) else

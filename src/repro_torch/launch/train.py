@@ -1,15 +1,15 @@
 """End-to-end training driver.
 
-Port of `repro.launch.train` for the families the port runs (dense and MoE
-decoder-only transformers, the VLM, whose batch gains zero patch
-embeddings, and the encoder-decoder, whose batch gains frames of 0.02, as
-the reference's): the deterministic token stream, AdamW with a
-warmup+cosine schedule, optional gradient compression and accumulation,
-atomic checkpoints (`repro_torch.checkpoint.Checkpointer`: a background
-save every ``--ckpt-every`` steps and a blocking one at the end), straggler
-detection and restart from the newest checkpoint (``--resume``).  Runs on
-CUDA unless given ``--device``, in float32 activations as the reference's
-launcher does:
+Port of `repro.launch.train` for every family (dense and MoE decoders,
+the zamba hybrid and xLSTM on their tokens alone, the VLM, whose batch
+gains zero patch embeddings, and the encoder-decoder, whose batch gains
+frames of 0.02, as the reference's): the deterministic token stream,
+AdamW with a warmup+cosine schedule, optional gradient compression and
+accumulation, atomic checkpoints (`repro_torch.checkpoint.Checkpointer`: a
+background save every ``--ckpt-every`` steps and a blocking one at the
+end), straggler detection and restart from the newest checkpoint
+(``--resume``).  Runs on CUDA unless given ``--device``, in float32
+activations as the reference's launcher does:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch qwen2-0.5b --reduced --steps 100 --batch 4 --seq 32

@@ -1,9 +1,10 @@
 """Uniform model API — the entry point the serving engine, the step
 builders and tests use.
 
-Port of `repro.models.api` for the families the port runs: dense (with
-the k-local:1-global pattern) and MoE decoder-only transformers, the VLM
-and the encoder-decoder:
+Port of `repro.models.api` for every family: dense (with the
+k-local:1-global pattern) and MoE decoder-only transformers, the Mamba2 +
+shared-attention hybrid (`zamba`), xLSTM (`xlstm`), the VLM and the
+encoder-decoder:
 
   api = get_model(cfg)
   params~ = api.init(gen, dtype)                    # Annotated tree
@@ -13,9 +14,8 @@ and the encoder-decoder:
   axes = api.cache_axes(caches)
   logits, caches = api.decode_step(params, caches, batch, ...)
 
-The hybrid (zamba) and ssm (xLSTM) families raise NotImplementedError
-naming the ROADMAP item that ports them.  The reference's abstract
-`batch_specs` belongs to the dry-run, which is not ported.
+The reference's abstract `batch_specs` belongs to the dry-run, which is
+not ported.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
-from . import encdec, transformer, vlm
+from . import encdec, transformer, vlm, xlstm, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +37,10 @@ class ModelAPI:
         return self.mod.init_lm(self.cfg, gen, dtype=dtype)
 
     def init_state(self, device=None):
-        """The model's state (MoE router queues) on ``device``: CUDA
-        unless asked (`device.resolve_device`), raising without a card."""
+        """The model's state on ``device``: CUDA unless asked
+        (`device.resolve_device`), raising without a card.  Only an MoE
+        model has one (its router queues); every other family's is
+        ``ModelState(router_H=None)``."""
         return transformer.init_model_state(self.cfg,
                                             device=resolve_device(device))
 
@@ -74,13 +76,12 @@ class ModelAPI:
                                        router_H=router_H)
 
 
-_FAMILY = {"dense": transformer, "moe": transformer, "vlm": vlm,
-           "encdec": encdec}
+_FAMILY = {"dense": transformer, "moe": transformer, "hybrid": zamba,
+           "ssm": xlstm, "encdec": encdec, "vlm": vlm}
 
 
 def get_model(cfg) -> ModelAPI:
-    if cfg.family in _FAMILY:
-        return ModelAPI(cfg=cfg, mod=_FAMILY[cfg.family])
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-        f"(ROADMAP A13, LLM substrate)")
+    if cfg.family not in _FAMILY:
+        raise KeyError(f"{cfg.name}: unknown family {cfg.family!r}; known: "
+                       f"{sorted(_FAMILY)}")
+    return ModelAPI(cfg=cfg, mod=_FAMILY[cfg.family])

@@ -49,6 +49,8 @@ class Init:
         dev = self.gen.device
         if kind == "zeros":
             v = torch.zeros(full_shape, dtype=self.dtype, device=dev)
+        elif kind == "ones":
+            v = torch.ones(full_shape, dtype=self.dtype, device=dev)
         else:
             v = torch.empty(full_shape, dtype=torch.float32, device=dev)
             torch.nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0,

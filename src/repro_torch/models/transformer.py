@@ -48,13 +48,20 @@ class ModelState(NamedTuple):
     router_H: Optional[torch.Tensor]    # [L_moe, E] or None
 
 
+#: The families another module stacks.
+_STACKED_BY = {"hybrid": "models.zamba", "ssm": "models.xlstm",
+               "encdec": "models.encdec"}
+
+
 def _check_family(cfg) -> None:
     """The families this module stacks: dense and MoE decoders, and the
-    VLM's backbone (a dense decoder behind a projector)."""
+    VLM's backbone (a dense decoder behind a projector); any other is
+    refused, naming the module that stacks it."""
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP A13)")
+        raise ValueError(
+            f"{cfg.name}: models.transformer does not stack the "
+            f"{cfg.family!r} family; "
+            f"{_STACKED_BY.get(cfg.family, 'no module')} does")
 
 
 def _dots_policy(ctx, func, *args, **kwargs):
@@ -213,21 +220,35 @@ def init_model_state(cfg, device=None) -> ModelState:
     return ModelState(router_H=None)
 
 
+def _is_state(tree) -> bool:
+    """A NamedTuple of tensors: a KVCache or a recurrent state."""
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (dicts of [L, ...] tensors or stacked
-    KVCaches): views, so in-place cache updates reach the stack."""
-    if isinstance(tree, KVCache):
-        return KVCache(*(t[i] for t in tree))
+    """Layer ``i`` of a stacked tree (dicts of [L, ...] tensors, stacked
+    KVCaches or recurrent states): views, so in-place cache updates reach
+    the stack."""
+    if _is_state(tree):
+        return type(tree)(*(t[i] for t in tree))
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
 
 
+def stack_state(prefix: tuple, state):
+    """A KVCache or recurrent state with ``prefix`` stack axes in front of
+    every field: each field copied to [*prefix, ...] (its own memory, for
+    in-place writes through `unstack`'s views)."""
+    return type(state)(*(t.expand(tuple(prefix) + t.shape).contiguous()
+                         for t in state))
+
+
 def unstack(tree, n: int) -> list:
-    """The ``n`` layers of a stacked tree of dicts or KVCaches, each leaf
-    split by one `unbind` (views, as `layer` gives)."""
-    if isinstance(tree, KVCache):
-        return [KVCache(*f) for f in zip(*(t.unbind(0) for t in tree))]
+    """The ``n`` layers of a stacked tree of dicts, KVCaches or recurrent
+    states, each leaf split by one `unbind` (views, as `layer` gives)."""
+    if _is_state(tree):
+        return [type(tree)(*f) for f in zip(*(t.unbind(0) for t in tree))]
     if isinstance(tree, dict):
         per = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: per[k][i] for k in tree} for i in range(n)]
@@ -294,10 +315,8 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):
     dev = resolve_device(device)
 
     def stacked(prefix, window=None):
-        c = init_cache(cfg, batch, max_len, dtype, window=window,
-                       device=dev)
-        return KVCache(*(t.expand(prefix + t.shape).contiguous()
-                         for t in c))
+        return stack_state(prefix, init_cache(cfg, batch, max_len, dtype,
+                                              window=window, device=dev))
 
     if cfg.local_global:
         n_groups, k, tail = _pattern(cfg)

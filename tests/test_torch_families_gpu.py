@@ -1,4 +1,5 @@
-"""The dense (local/global), VLM and encoder-decoder families on the card
+"""The dense (local/global), VLM, encoder-decoder, zamba (Mamba2 + shared
+attention) and xLSTM families on the card
 (`gpu`-marked: skipped without a CUDA device; needs no JAX, so it runs on
 the card's machine).
 
@@ -11,7 +12,12 @@ own head layouts (internvl2's 14 over 2, seamless's encoder and cross
 rows) likewise; `cross_attention` refuses a memory mask on the card; the
 VLM's and the encoder-decoder's prefills launch the kernel once per
 attention core (the VLM's layers; the encoder's, the decoder's self and
-its cross layers).
+its cross layers).  zamba and xLSTM, reduced (zamba at its head dim 80,
+so its shared block runs the kernels' D = 80 paths): float32 logits card
+against the CPU within 1e-4, decode on the card against its forward
+within 2e-3, and the launches of a bf16 prefill (one sm90 launch per
+application of the shared block; none for xLSTM, whose blocks are plain
+torch).
 """
 import numpy as np
 import pytest
@@ -133,4 +139,43 @@ def test_prefill_launch_counts(arch):
     torch.cuda.synchronize()
     assert launches() - before == want
     assert logits.shape == (2, 1, tcfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,attn_calls", [("zamba2-2.7b", 2),
+                                             ("xlstm-350m", 0)])
+def test_recurrent_families_on_the_card(arch, attn_calls):
+    card()
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch), head_dim=80)
+    api = get_model(tcfg)
+    params, _ = split_tree(api.init(torch.Generator("cuda").manual_seed(3)))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, tcfg.vocab, (2, 150)))
+    before = fkernel.flash_attention.launches
+    got, _, _ = api.logits(params, {"tokens": toks.cuda()},
+                           activ_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fkernel.flash_attention.launches - before == attn_calls
+    want, _, _ = api.logits(tree_map(lambda p: p.cpu(), params),
+                            {"tokens": toks}, activ_dtype=torch.float32)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    caches = api.init_decode(2, 64, torch.float32, device="cuda")
+    for t in range(64):
+        lt, caches = api.decode_step(params, caches,
+                                     {"tokens": toks[:, t].cuda()},
+                                     activ_dtype=torch.float32)
+        np.testing.assert_allclose(lt.cpu().numpy(), got[:, t].cpu().numpy(),
+                                   rtol=2e-3, atol=2e-3, err_msg=f"step {t}")
+    bf16, _ = split_tree(api.init(torch.Generator("cuda").manual_seed(3),
+                                  dtype=torch.bfloat16))
+    before = launches()
+    sm90 = fkernel.flash_attention.launches_sm90
+    with torch.inference_mode():
+        logits, _, _ = api.logits(bf16, {"tokens": toks.cuda()},
+                                  last_only=True)
+    torch.cuda.synchronize()
+    assert launches() - before == attn_calls
+    assert fkernel.flash_attention.launches_sm90 - sm90 == attn_calls
     assert bool(torch.isfinite(logits).all())

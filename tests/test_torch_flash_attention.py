@@ -17,6 +17,12 @@ emulations of the two CUDA kernels pin their algebra without a GPU:
     p_lo V), held in bf16 to the plain version, to the Pallas kernel, and
     within bf16 rounding (1e-5 + 2^-8 |ref|) of float32 math; the split
     itself is pinned on adversarial p.
+Head dim 80 (zamba2's shared attention) is held the same way: on the
+CPU its dispatch (the plain version here; the sm90 kernel in bfloat16 and
+the CUDA-core kernel in float32 on the card, an uninstantiated head dim
+raising), the plain version against the Pallas kernel, the CUDA-core fold
+at D = 80, and the sm90 kernel's route, its D = 128 tile over zero-filled
+columns 80-127.
 The `gpu`-marked tests hold both CUDA kernels to the plain version on the
 card (each case through the kernel its dtype and head dim select), a
 reduced float32 prefill on the card (flash attention and bp_topk_route in every
@@ -251,18 +257,21 @@ def split_p(p):
     return hi, (p - hi).to(torch.bfloat16).float()
 
 
-def emulate_sm90(q, k, v, *, causal, window):
+def emulate_sm90(q, k, v, *, causal, window, scale=None):
     """The sm90 kernel's arithmetic in torch, per (batch, head, 64-row
     warpgroup of a 128-query block): S = q k^T of the bf16 operands in
     float32, times scale * log2(e) (one float32 product, as in the C
     entry); masked keys of edge tiles set to NEG_INF; m' = max(m, max S),
     alpha = exp2(m - m'), p = exp2(S - m') (0 on masked keys, and below
     2^-126, which ex2.approx.ftz flushes); l = l alpha + sum p;
-    O = O alpha + p_hi V + p_lo V; out = O / max(l, 1e-30) in bf16."""
+    O = O alpha + p_hi V + p_lo V; out = O / max(l, 1e-30) in bf16.
+    ``scale`` is the caller's (1/sqrt(D) unless given: the C entry takes
+    it as an argument)."""
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
     G, bk = H // KH, sm90_bk(D)
-    c = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32) * \
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    c = torch.tensor(scale, dtype=torch.float32) * \
         torch.tensor(math.log2(math.e), dtype=torch.float32)
     out = torch.zeros(q.shape, dtype=torch.float32)
     for b in range(B):
@@ -497,10 +506,12 @@ def test_grid_covers_each_row_once(G, S):
                     if qw0 + rg + 4 * i < S:
                         stored[b, h, qw0 + rg + 4 * i] += 1
     assert (stored == 1).all()
-    # the 8 lanes of a row store its dims once: lane kg, (8 c + kg) VW + e
-    for D in (16, 32, 64, 128):
+    # the 8 lanes of a row store its dims once: lane kg, (8 c + kg) VW + e,
+    # VW = 4 where 4 divides D / 8, else 2 (D = 16 and 80)
+    for D in (16, 32, 64, 80, 128):
         DL = D // 8
-        VW = min(4, DL)
+        VW = 4 if DL % 4 == 0 else 2
+        assert DL % VW == 0
         dims = sorted((8 * c + kg) * VW + e for kg in range(8)
                       for c in range(DL // VW) for e in range(VW))
         assert dims == list(range(D))
@@ -556,6 +567,125 @@ def test_wrapper_rejects_bad_inputs():
         torch.zeros((1, 2, 8, 64)))))
     assert (tkernel.flash_attention.launches,
             tkernel.flash_attention.launches_sm90) == before  # CPU: none
+
+
+#: Head dim 80 (zamba2's shared attention: 32 heads over 32), both dtypes:
+#: a ragged causal length, T != S without a mask, a window with G = 4.
+D80_CASES = [(1, 4, 4, 100, 100, 80, True, None, dtype)
+             for dtype in ("float32", "bfloat16")] + [
+    (2, 2, 2, 77, 130, 80, False, None, "float32"),
+    (1, 8, 2, 200, 200, 80, True, 50, "bfloat16")]
+
+
+def test_head_dim_80_dispatch():
+    """D = 80 runs the sm90 kernel in bfloat16 and the CUDA-core kernel in
+    float32 on the card; on the CPU it is the plain version, no launch;
+    a head dim neither kernel instantiates raises for a CUDA call."""
+    assert tkernel.kernel_for(torch.bfloat16, 80) == "sm90"
+    assert tkernel.kernel_for(torch.float32, 80) == "cuda-core"
+    assert tkernel.kernel_for(torch.bfloat16, 32) == "cuda-core"
+    for dtype, D in ((torch.float32, 96), (torch.bfloat16, 96),
+                     (torch.bfloat16, 48), (torch.float32, 8)):
+        with pytest.raises(ValueError, match=f"head dim {D}"):
+            tkernel.kernel_for(dtype, D)
+    before = (tkernel.flash_attention.launches,
+              tkernel.flash_attention.launches_sm90)
+    for case in D80_CASES:
+        *_, causal, window, dtype = case
+        q, k, v = as_torch(inputs(case, seed=5), dtype)
+        out = tkernel.flash_attention(q, k, v, causal=causal, window=window)
+        assert torch.equal(out, flash_attention_ref(q, k, v, causal=causal,
+                                                    window=window))
+    # a CPU call of an uninstantiated head dim is the plain version too
+    q96 = torch.zeros((1, 2, 5, 96))
+    assert tkernel.flash_attention(q96, q96, q96).shape == q96.shape
+    assert (tkernel.flash_attention.launches,
+            tkernel.flash_attention.launches_sm90) == before
+
+
+@pytest.mark.parametrize("case", D80_CASES)
+def test_head_dim_80_plain_matches_pallas_kernel_and_ref(J, case):
+    test_plain_matches_pallas_kernel_and_ref(J, case)
+
+
+@pytest.mark.parametrize("case", D80_CASES)
+def test_head_dim_80_fold_emulation_matches_plain(case):
+    """The CUDA-core kernel's fold at D = 80 (its float32 instantiation;
+    the algebra is the same in either dtype)."""
+    test_kernel_fold_emulation_matches_plain(case)
+
+
+@pytest.mark.parametrize("case", D80_CASES)
+def test_sm90_head_dim_80_runs_the_128_column_tile(case):
+    """D = 80 on the sm90 kernel: the D = 128 tile over inputs whose
+    columns 80-127 TMA fills with zeros, at the caller's scale 1/sqrt(80):
+    columns 80-127 of the tile's output are exactly 0, and the first 80
+    hold the plain version within 2e-2 and float32 math within bf16
+    rounding."""
+    B, H, KH, S, T, D, causal, window, _ = case
+    q, k, v = as_torch(inputs(case, seed=6), "bfloat16")
+
+    def pad(t):
+        return torch.cat([t, torch.zeros(t.shape[:-1] + (128 - D,),
+                                         dtype=t.dtype)], dim=-1)
+    tile = emulate_sm90(pad(q), pad(k), pad(v), causal=causal,
+                        window=window, scale=1.0 / math.sqrt(D))
+    assert torch.equal(tile[..., D:], torch.zeros_like(tile[..., D:]))
+    got = tile[..., :D].float()
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want.float().numpy(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal, window=window)
+    atol, rtol = BF16_ROUNDING
+    np.testing.assert_allclose(got.numpy(), want32.numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+def test_head_dim_80_on_the_card():
+    """Both kernels at D = 80 against the plain version (1e-5 float32,
+    2e-2 bfloat16, and bf16 within rounding of float32 math), each call
+    moving its kernel's counter, twice bit-identical; the model's [B, S,
+    H, D] layout passes through strides; a head dim neither kernel
+    instantiates raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for case in D80_CASES + [(1, 32, 32, 1000, 1000, 80, True, None, dt)
+                             for dt in ("float32", "bfloat16")] + [
+            (8, 32, 32, 512, 512, 80, True, None, "float32")]:
+        *_, causal, window, dtype = case
+        q, k, v = (t.cuda() for t in as_torch(inputs(case, seed=7), dtype))
+        before = (tkernel.flash_attention.launches,
+                  tkernel.flash_attention.launches_sm90)
+        out = tkernel.flash_attention(q, k, v, causal=causal, window=window)
+        again = tkernel.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        sm90 = dtype == "bfloat16"
+        assert (tkernel.flash_attention.launches,
+                tkernel.flash_attention.launches_sm90) == (
+                    before[0] + 2 * (not sm90), before[1] + 2 * sm90)
+        assert torch.equal(out, again), str(case)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=TOL[dtype], atol=TOL[dtype],
+                                   err_msg=str(case))
+        if sm90:
+            want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal=causal, window=window)
+            np.testing.assert_allclose(out.float().cpu().numpy(),
+                                       want32.cpu().numpy(), rtol=2.0 ** -8,
+                                       atol=1e-5, err_msg=str(case))
+        strided = tkernel.flash_attention(
+            q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+            causal=causal, window=window)
+        assert torch.equal(strided, out), str(case)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros((1, 2, 8, 96), dtype=dtype, device="cuda")
+        with pytest.raises(ValueError, match="head dim 96"):
+            tkernel.flash_attention(x, x, x)
 
 
 @pytest.mark.gpu

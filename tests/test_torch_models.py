@@ -91,12 +91,19 @@ def test_init_tree_matches_reference_shapes_and_axes(arch):
 
 
 def test_unported_families_raise():
+    """Every family of the reference is ported: an unknown family still
+    raises in `get_model`, and the hybrid and ssm configs resolve to their
+    modules."""
     cfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_config(
-        "qwen2-0.5b")), family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        "qwen2-0.5b")), family="recurrent")
+    with pytest.raises(KeyError, match="unknown family 'recurrent'"):
         get_model(cfg)
-    with pytest.raises(KeyError):
-        tconfigs.get_config("xlstm-350m")
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_config("xlstm-7b")
+    from repro_torch.models import xlstm, zamba
+    for arch, mod in (("xlstm-350m", xlstm), ("zamba2-2.7b", zamba)):
+        assert get_model(tconfigs.get_config(arch)).mod is mod
+    assert sorted(tconfigs.ARCHS) == sorted(jconfigs.ARCHS)
 
 
 # ---------------------------------------------------------------------------

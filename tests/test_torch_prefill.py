@@ -240,11 +240,14 @@ def test_moe_stack_needs_router_queues_and_local_global_is_refused():
     with pytest.raises(ValueError, match="router_H"):
         ttransformer.lm_logits(tcfg, tp, toks)
     # the local/global pattern runs since the dense family's slice; a
-    # family still unported is refused, with or without it
-    hybrid = dataclasses.replace(tcfg, family="hybrid", local_global=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ttransformer.stack_fwd(hybrid, tp["stack"], torch.zeros(
-            (B, S, tcfg.d_model)), torch.arange(S)[None])
+    # family another module stacks is refused, with or without it, naming
+    # that module
+    for family, module in (("hybrid", "models.zamba"),
+                           ("ssm", "models.xlstm")):
+        other = dataclasses.replace(tcfg, family=family, local_global=5)
+        with pytest.raises(ValueError, match=module):
+            ttransformer.stack_fwd(other, tp["stack"], torch.zeros(
+                (B, S, tcfg.d_model)), torch.arange(S)[None])
 
 
 def test_port_imports_neither_jax_nor_repro():
