@@ -233,7 +233,18 @@ on failure:
      sLSTM loops' share of a step; at full depth in float32 a forward of
      256 tokens and the same tokens decoded one by one within 2e-3; its
      first mLSTM and sLSTM blocks teacher-forced, card against the CPU
-     within 1e-5.
+     within 1e-5;
+ 28. the dry-run (`phase_dryrun`, `launch.dryrun`): the sweep of the 32
+     cells at full width, traced on the meta device (`--all --mesh
+     local`, every record "ok") beside their layout on the reference's
+     meshes (`--mesh both`, every record "layout"), two processes at
+     once, the trace seconds of each cell; then the trace held against
+     the card at three shapes run above (granite's prefill, gemma3's
+     prefill, granite's float32 training): the traced state's bytes equal
+     the real state's, and the model FLOPs over the peak of the step's
+     matrix dtype at most the measured time (that share printed beside
+     its prediction); the trace's roofline bound against the measured
+     time and its temporaries against the peak device memory, printed.
 
 The second-to-last lines are the kernel table (one JSON object) and the
 card's name and power limit; the last line is
@@ -247,6 +258,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -484,11 +496,23 @@ FAULT_LANES = 64
 SNAPSHOT_REPS = 5
 CHILD_TIMEOUT_S = 300
 
-#: Published peaks of the H100 SXM (NVIDIA's data sheet, at 700 W): memory
-#: bytes/s, float32 operations/s outside the tensor cores, and dense
-#: bfloat16 operations/s on the tensor cores.  The bounds are stated for
-#: this card only.
-H100_SXM_PEAKS = {"bytes": 3.35e12, "float32": 67e12, "bfloat16": 989e12}
+#: What the phases the dry-run is held against measured on the card:
+#: {"granite_prefill" | "gemma3_prefill" | "granite_train": {"ms": the
+#: median step, "state_bytes": the real state's bytes, "peak_bytes":
+#: the peak device memory of the timed steps}}.
+MEASURED: dict = {}
+#: The dry-run's cross-check: (arch, B, S, kind, RunConfig overrides, the
+#: MEASURED key, the model-FLOPs share predicted from earlier times).
+DRYRUN_CHECKS = (
+    ("granite-moe-1b-a400m", 1, 32_768, "prefill", {}, "granite_prefill",
+     0.06),
+    ("gemma3-27b", 1, 32_768, "prefill", {"param_dtype": "bfloat16"},
+     "gemma3_prefill", 0.51),
+    ("granite-moe-1b-a400m", 8, 512, "train",
+     {"activ_dtype": "float32", "remat": "full"}, "granite_train", 0.24))
+DRYRUN_TAG = "smoke"
+DRYRUN_BUDGET_S = 150.0         # the sweep's wall budget
+DRYRUN_TIMEOUT_S = 600
 #: Profiler windows `device_ms` tries before it gives up on a lost event.
 PROFILE_TRIES = 3
 
@@ -529,11 +553,15 @@ def host_cpu() -> str:
 
 
 def card_peaks(name: str):
-    """The peaks the bounds use; another card's are not in this script."""
+    """The peaks the bounds use: the H100 SXM's published ones (memory
+    bytes/s, float32 operations/s outside the tensor cores, dense bfloat16
+    operations/s on them), from `repro_torch.launch.roofline`, the one
+    source; another card's are not in this script."""
+    from repro_torch.launch import roofline as rl
     check("H100" in name and "PCIe" not in name and "NVL" not in name,
           f"bounds are stated for the H100 SXM only; add the peaks of "
           f"{name!r} before measuring on it")
-    return H100_SXM_PEAKS
+    return {"bytes": rl.HBM_BW, **rl.PEAK_FLOPS}
 
 
 def device_ms(fn, match: str | None = None, n: int = 60,
@@ -2728,6 +2756,13 @@ def serve_model(dev, n_layers=None, seed: int = 0):
     return cfg, params
 
 
+def state_bytes(tree) -> int:
+    """Bytes of a real state's tensors (dicts, NamedTuples), each storage
+    once: what the dry-run's abstract state must hold byte for byte."""
+    from repro_torch.launch.dryrun import tree_bytes
+    return tree_bytes(tree)
+
+
 def tree_numel(tree) -> int:
     if isinstance(tree, dict):
         return sum(tree_numel(v) for v in tree.values())
@@ -3578,6 +3613,9 @@ def phase_prefill(dev):
           bool(torch.isfinite(H_new).all()) and bool((H_new >= 0).all()),
           "the new router queues must be finite and >= 0")
     med = statistics.median(walls)
+    MEASURED["granite_prefill"] = {
+        "ms": med, "state_bytes": state_bytes(params),
+        "peak_bytes": peak * 2**30}
     evs = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if evs:
@@ -3951,6 +3989,7 @@ class StepRecorder:
         self.ms, self.losses, self.launches = [], [], []
         self.m_after_1, self.H, self.prof = None, None, None
         self.profile_at, self.profiled_ms = profile_at, None
+        self.state_bytes = None
 
     def record(self, original):
         import torch
@@ -3961,6 +4000,8 @@ class StepRecorder:
 
             def recorded(state, batch):
                 n = len(self.losses)
+                if n == 0:
+                    self.state_bytes = state_bytes(state)
                 torch.cuda.synchronize()
                 before = model_counts()
                 t0 = time.perf_counter()
@@ -4051,6 +4092,8 @@ def phase_train(dev):
              if k.rsplit("/", 1)[-1] in ("wq", "wk", "wv", "router")}
     check(len(named) == 4, f"leaves named: {sorted(named)}")
     ms = statistics.median(rec.ms[1:])
+    MEASURED["granite_train"] = {"ms": ms, "state_bytes": rec.state_bytes,
+                                 "peak_bytes": peak * 2**30}
     log(f"train: {cfg.name} full width ({L} layers), float32, B={TRAIN_B}, "
         f"S={TRAIN_S}, remat full, {TRAIN_STEPS} steps through "
         f"launch.train.main ({time.perf_counter() - t0:.1f} s): losses "
@@ -4622,6 +4665,9 @@ def phase_gemma3_prefill(dev):
         step, params, {"tokens": toks}, {"tokens": warm})
     check_prefill(cfg, logits, launches, 2 * cfg.n_layers, "gemma3 prefill")
     med = statistics.median(walls)
+    MEASURED["gemma3_prefill"] = {
+        "ms": med, "state_bytes": state_bytes(params),
+        "peak_bytes": peak * 2**30}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with torch.inference_mode():
@@ -5429,6 +5475,129 @@ def phase_xlstm_train(dev):
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def dryrun_sweep() -> dict:
+    """`python -m repro_torch.launch.dryrun --all --force` on the local
+    mesh and on both logical meshes, two processes at once; every record
+    must come out "ok" (local) or "layout" (single, multi).  Returns the
+    records by (arch, shape, mesh)."""
+    from repro_torch.configs import cells
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import report
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = {mesh: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", mesh, "--force", "--tag", DRYRUN_TAG],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for mesh in ("local", "both")}
+    outs = {}
+    try:
+        for mesh, proc in procs.items():
+            outs[mesh] = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for mesh, proc in procs.items():
+        check(proc.returncode == 0,
+              f"dry-run --mesh {mesh} exited {proc.returncode}:\n"
+              f"{outs[mesh][-3000:]}")
+    recs = {(r["arch"], r["shape"], r["mesh"]): r
+            for r in report.load(DRYRUN_TAG)}
+    want = {"local": "ok", "single": "layout", "multi": "layout"}
+    for arch, shape in cells():
+        for mesh, status in want.items():
+            r = recs.get((arch, shape, mesh))
+            check(r is not None and r["status"] == status,
+                  f"dry-run {arch} x {shape} x {mesh}: "
+                  f"{r and r['status']} {r and r.get('error')}")
+    local = [recs[(a, s, "local")] for a, s in cells()]
+    log(f"dryrun: {len(local)} cells traced on the meta device (local) and "
+        f"{2 * len(local)} laid out on the 256- and 512-chip meshes in "
+        f"{wall:.1f} s (two processes at once; budget "
+        f"{DRYRUN_BUDGET_S:.0f} s); trace seconds: " + ", ".join(
+            f"{r['arch']} x {r['shape']} {r['trace_s']}" + (
+                f" (+ sLSTM correction {r['slstm_correction']['seconds']})"
+                if "slstm_correction" in r else "") for r in local))
+    log("dryrun: local records (the plain path at the H100 peaks; its "
+        "dominant term upper-bounds the kernel path's): " + "; ".join(
+        f"{r['arch']} x {r['shape']}: compute {r['roofline']['compute_s']:.6g} "
+        f"s, memory {r['roofline']['memory_s']:.6g} s, "
+        f"{r['roofline']['dominant']}, 6ND/traced "
+        f"{r['useful_flops_ratio']:.4f}, args "
+        f"{r['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB, temp "
+        f"{r['memory']['temp_size_in_bytes'] / 2**30:.3f} GiB"
+        for r in local))
+    check(wall <= DRYRUN_BUDGET_S, f"the dry-run sweep took {wall:.1f} s, "
+          f"over its budget of {DRYRUN_BUDGET_S:.0f} s")
+    return recs
+
+
+def phase_dryrun(dev) -> None:
+    """The dry-run stack on the card's host: the sweep (`dryrun_sweep`),
+    then the trace of each DRYRUN_CHECKS shape held against what its phase
+    measured (MEASURED): (a) the traced state's bytes (params for a
+    prefill; params, AdamW moments and count, step and router queues for
+    training) equal the real state's; (b) the model FLOPs over the peak of
+    the step's matrix dtype (its activation dtype; TF32 is off) are at
+    most the measured time, that share printed beside its prediction;
+    (c) the trace's bound (its compute and memory terms' larger) against
+    the measured time and (d) its temporaries (and arguments) against the
+    peak device memory, printed."""
+    import torch
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models import get_model
+    from repro_torch.runtime.step import init_train_state
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the roofline prices float32 products at the CUDA-core peak")
+    dryrun_sweep()
+    for arch, B, S, kind, over, key, predicted in DRYRUN_CHECKS:
+        got = MEASURED[key]
+        shape = ShapeConfig(f"smoke_{kind}", S, B, kind)
+        cfg = get_config(arch)
+        rec = dr.run_cell(arch, shape, rcfg_overrides=over, tag=DRYRUN_TAG)
+        check(rec["status"] == "ok", f"dry-run {key}: {rec['status']}")
+        rcfg = RunConfig(model=cfg, shape=shape, **over)
+        specs, _ = get_model(cfg).batch_specs(shape)
+        state, _ = init_train_state(rcfg, abstract=True)
+        extra = dr.tree_bytes(specs)
+        if kind == "prefill":
+            extra += dr.tree_bytes(state.router_H)
+        traced = rec["memory"]["argument_size_in_bytes"] - extra
+        check(traced == got["state_bytes"],
+              f"dry-run {key}: traced state {traced} bytes, the card's "
+              f"{got['state_bytes']}")
+        gemm = rcfg.activ_dtype
+        floor_s = rec["model_flops"] / rl.PEAK_FLOPS[gemm]
+        share = floor_s / (got["ms"] / 1e3)
+        check(share <= 1.0, f"dry-run {key}: model FLOPs at the {gemm} peak "
+              f"take {floor_s:.6g} s, more than the measured "
+              f"{got['ms'] / 1e3:.6g} s")
+        roof = rec["roofline"]
+        bound = max(roof["compute_s"], roof["memory_s"])
+        mem = rec["memory"]
+        log(f"dryrun check {key}: {arch} B={B} S={S} {kind} "
+            f"({rcfg.activ_dtype} activations, {rcfg.param_dtype} params; "
+            f"trace {rec['trace_s']} s, {rec['trace_ops']} ops): (a) state "
+            f"{traced} bytes traced = {got['state_bytes']} on the card; (b) "
+            f"model FLOPs {rec['model_flops']:.6g} / {gemm} peak = "
+            f"{floor_s:.6g} s, {share:.4f} of the measured "
+            f"{got['ms'] / 1e3:.6g} s (predicted {predicted}); (c) traced "
+            f"FLOPs {roof['flops_per_device']:.6g} ({roof['flops_by_dtype']}), "
+            f"bytes {roof['bytes_per_device']:.6g}: compute "
+            f"{roof['compute_s']:.6g} s, memory {roof['memory_s']:.6g} s, "
+            f"bound {bound:.6g} s = {bound / (got['ms'] / 1e3):.4f} of the "
+            f"measured time, {roof['dominant']} on the plain path; (d) "
+            f"temporaries "
+            f"{mem['temp_size_in_bytes'] / 2**30:.4f} GiB + arguments "
+            f"{mem['argument_size_in_bytes'] / 2**30:.4f} GiB against the "
+            f"card's peak {got['peak_bytes'] / 2**30:.4f} GiB")
+
+
 def to_device_tree(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device_tree(v, dev) for k, v in tree.items()}
@@ -5581,6 +5750,9 @@ def main() -> int:
     for k, r in rows.items():
         r["launches"] = launches[k]
         check(r["launches"] > 0, f"{k}: no launch on its path")
+    t_dry = time.perf_counter()
+    phase_dryrun(dev)
+    log(f"phase_dryrun: {time.perf_counter() - t_dry:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

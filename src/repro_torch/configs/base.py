@@ -5,8 +5,9 @@ A copy of `repro.configs.base` for the families the port runs (the port
 imports nothing of `repro`), fields and defaults unchanged.  Of
 `RunConfig`'s knobs the port's step builders read `model`,
 `activ_dtype`, `param_dtype`, `remat`, `grad_accum` and
-`grad_compression`; the sharding and attention-impl knobs have nothing to
-choose on one device.
+`grad_compression`; the dry-run (`launch.dryrun`) reads the sharding
+knobs for its logical meshes and sets the attention flags from
+`attn_impl` and `ctx_par`.
 """
 from __future__ import annotations
 
@@ -51,6 +52,11 @@ class ModelConfig:
     dec_layers: int = 0
     # VLM
     n_patches: int = 0
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Can this arch decode at 500k context without quadratic attention?"""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def q_per_kv(self) -> int:

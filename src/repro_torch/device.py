@@ -16,10 +16,17 @@ import dataclasses
 import torch
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` when given, else CUDA.
+def resolve_device(device=None, abstract: bool = False) -> torch.device:
+    """The device an entry point runs on: the meta device when
+    ``abstract`` (shapes and dtypes, no storage: the dry-run's state),
+    else ``device`` when given, else CUDA.
 
     Raises RuntimeError when no device was asked for and CUDA is absent."""
+    if abstract:
+        if device is not None:
+            raise ValueError(f"abstract state lives on the meta device, not "
+                             f"{device}")
+        return torch.device("meta")
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():

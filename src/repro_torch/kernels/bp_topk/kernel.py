@@ -7,7 +7,9 @@ whole gate of one MoE layer (`repro.models.moe._route` with
 and the H update) in one launch; its source is `csrc/bp_topk_route.cu`.
 Each wrapper checks dtype, shape, device and contiguity, then:
 
-  * for CPU tensors, runs the plain PyTorch version in `ref.py`;
+  * for CPU tensors, runs the plain PyTorch version in `ref.py`
+    (`bp_topk_route` also for meta tensors, the dry-run's trace, where
+    the plain version only carries shapes);
   * for CUDA tensors, launches the kernel (building it at first use, see
     `repro_torch.kernels._build`) or raises — there is no fallback.
 
@@ -130,7 +132,7 @@ def bp_topk_route(logits: torch.Tensor, H: torch.Tensor, steps: torch.Tensor,
     _check("steps", steps, torch.int32, (), dev)
     if T < 1 or not 1 <= k <= E:
         raise ValueError(f"T={T} must be >= 1 and k={k} lie in [1, E={E}]")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):     # meta: the dry-run's shapes only
         return bp_topk_route_ref(logits, H, steps, cap, k, backpressure)
     if dev.type != "cuda":
         raise ValueError(f"bp_topk_route: unsupported device {dev}")

@@ -88,6 +88,10 @@ def bp_topk_route_ref(logits: torch.Tensor, H: torch.Tensor,
         bias = torch.zeros((E,), dtype=torch.float32, device=logits.device)
     idx, w = bp_topk_ref(logits.to(torch.float32), bias, k)
     idx = idx.long()
-    counts = torch.bincount(idx.reshape(-1), minlength=E).to(torch.float32)
+    # exact integer counts (bincount's), through an op the meta device has
+    counts = torch.zeros((E,), dtype=torch.int64, device=idx.device)
+    counts = counts.index_add_(0, idx.reshape(-1),
+                               torch.ones_like(idx.reshape(-1)))
+    counts = counts.to(torch.float32)
     H_new = torch.clamp(H + counts - cap_t, min=0.0)
     return idx, w.to(logits.dtype), counts, H_new, steps + 1

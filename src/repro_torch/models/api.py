@@ -7,15 +7,16 @@ shared-attention hybrid (`zamba`), xLSTM (`xlstm`), the VLM and the
 encoder-decoder:
 
   api = get_model(cfg)
-  params~ = api.init(gen, dtype)                    # Annotated tree
+  params~ = api.init(gen, dtype, abstract)          # Annotated tree
   loss, (H', metrics) = api.loss(params, batch, ...)  # training loss
   logits, H', aux = api.logits(params, batch, ...)  # prefill forward
-  caches = api.init_decode(batch, max_len, dtype, device)
+  caches = api.init_decode(batch, max_len, dtype, device, abstract)
   axes = api.cache_axes(caches)
   logits, caches = api.decode_step(params, caches, batch, ...)
+  specs, axes = api.batch_specs(shape)              # meta inputs (dry-run)
 
-The reference's abstract `batch_specs` belongs to the dry-run, which is
-not ported.
+Abstract state and specs are tensors on the meta device: the reference's
+ShapeDtypeStructs, which the dry-run (`launch.dryrun`) traces.
 """
 from __future__ import annotations
 
@@ -33,16 +34,18 @@ class ModelAPI:
     cfg: Any
     mod: Any
 
-    def init(self, gen: torch.Generator, dtype=torch.float32):
-        return self.mod.init_lm(self.cfg, gen, dtype=dtype)
+    def init(self, gen: torch.Generator | None = None, dtype=torch.float32,
+             abstract: bool = False):
+        return self.mod.init_lm(self.cfg, gen, dtype=dtype,
+                                abstract=abstract)
 
-    def init_state(self, device=None):
+    def init_state(self, device=None, abstract: bool = False):
         """The model's state on ``device``: CUDA unless asked
-        (`device.resolve_device`), raising without a card.  Only an MoE
-        model has one (its router queues); every other family's is
-        ``ModelState(router_H=None)``."""
-        return transformer.init_model_state(self.cfg,
-                                            device=resolve_device(device))
+        (`device.resolve_device`), raising without a card; the meta device
+        when ``abstract``.  Only an MoE model has one (its router queues);
+        every other family's is ``ModelState(router_H=None)``."""
+        return transformer.init_model_state(
+            self.cfg, device=resolve_device(device, abstract))
 
     def loss(self, params, batch, *, activ_dtype=torch.bfloat16,
              remat="full", router_H=None):
@@ -60,10 +63,12 @@ class ModelAPI:
                                   activ_dtype=activ_dtype, remat=remat,
                                   router_H=router_H, last_only=last_only)
 
-    def init_decode(self, batch: int, max_len: int, dtype, device=None):
+    def init_decode(self, batch: int, max_len: int, dtype, device=None,
+                    abstract: bool = False):
         """Empty decode caches on ``device``, resolved as `init_state`."""
-        return self.mod.init_decode_caches(self.cfg, batch, max_len, dtype,
-                                           device=resolve_device(device))
+        return self.mod.init_decode_caches(
+            self.cfg, batch, max_len, dtype,
+            device=resolve_device(device, abstract))
 
     def cache_axes(self, tree):
         return self.mod.cache_axes(tree)
@@ -74,6 +79,36 @@ class ModelAPI:
                                        batch["tokens"],
                                        activ_dtype=activ_dtype,
                                        router_H=router_H)
+
+    def batch_specs(self, shape, activ_dtype=torch.bfloat16):
+        """Abstract inputs of ``shape`` (a `ShapeConfig`): (meta tensors,
+        logical axes), the reference's shapes, dtypes and axes.  Tokens are
+        int32 as the reference's; the port's steps index with them as they
+        are (the cross entropy widens its labels to int64 itself)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def tok(*sh):
+            return torch.empty(sh, dtype=torch.int32, device="meta")
+
+        def emb(*sh):
+            return torch.empty(sh, dtype=activ_dtype, device="meta")
+
+        if shape.kind == "decode":
+            return {"tokens": tok(B)}, {"tokens": ("act_batch",)}
+        if cfg.family == "encdec":
+            specs = {"frames": emb(B, S, cfg.d_model), "tokens": tok(B, S)}
+            axes = {"frames": ("act_batch", "act_seq", "act_embed"),
+                    "tokens": ("act_batch", "act_seq")}
+        elif cfg.family == "vlm":
+            specs = {"patch_embeds": emb(B, cfg.n_patches, cfg.d_model),
+                     "tokens": tok(B, S - cfg.n_patches)}
+            axes = {"patch_embeds": ("act_batch", None, "act_embed"),
+                    "tokens": ("act_batch", "act_seq")}
+        else:
+            specs = {"tokens": tok(B, S)}
+            axes = {"tokens": ("act_batch", "act_seq")}
+        return specs, axes
 
 
 _FAMILY = {"dense": transformer, "moe": transformer, "hybrid": zamba,

@@ -245,19 +245,28 @@ def attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     """Full (train/prefill) self-attention: x [B, S, d] -> [B, S, d].
 
     On CUDA the core is the hand-written kernel (`_kernel_core`), masking
-    by index; on the CPU it is `sdpa` with `_mask` over ``positions``.
-    Index and position agree because every caller passes positions =
-    arange(S) (`lm_logits`, with or without a prefix; `encdec.encode`).
-    The reference's choice of core by its attention-impl flag, and its
-    sharding constraints, wait for the dry-run stack (ROADMAP A13): on
-    the CPU `sdpa_chunked`/`sdpa_banded` equal `sdpa` within float32
-    rounding, and on the card the kernel is the core for either."""
+    by index, under either `runtime.flags.attention_impl`.  Index and
+    position agree because every caller passes positions = arange(S)
+    (`lm_logits`, with or without a prefix; `encdec.encode`).  Off the
+    card (the CPU, and the dry-run's meta trace) the core is the
+    reference's choice by the flags, over ``positions``: "chunked" with a
+    window and causal is `sdpa_banded`; "chunked" otherwise
+    `sdpa_chunked` with query chunks of 2048 (one chunk under
+    `context_parallel`); "naive" the masked `sdpa`.  The reference's
+    sharding constraints only shard and are left out."""
     q, k, v = _project_qkv(cfg, p, x, positions)
     if x.device.type == "cuda":
         out = _kernel_core(q, k, v, causal=causal, window=window)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    pos = positions if positions.dim() == 2 else positions[None, :]
+    pos = pos.expand(x.shape[:2])
+    if flags.attn_impl() == "chunked" and window is not None and causal:
+        out = sdpa_banded(q, k, v, pos, pos, window=window)
+    elif flags.attn_impl() == "chunked":
+        cq = 10 ** 9 if flags.ctx_par() else 2048
+        out = sdpa_chunked(q, k, v, pos, pos, causal=causal, window=window,
+                           chunk_q=cq)
     else:
-        pos = positions if positions.dim() == 2 else positions[None, :]
-        pos = pos.expand(x.shape[:2])
         out = sdpa(q, k, v, _mask(pos, pos, causal=causal, window=window))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
@@ -302,10 +311,10 @@ def encode_kv(cfg, p: dict, mem: torch.Tensor):
 
 def init_cache(cfg, batch: int, max_len: int, dtype, *,
                kv_heads: int | None = None, window: Optional[int] = None,
-               device=None) -> KVCache:
+               device=None, abstract: bool = False) -> KVCache:
     """An empty KV cache on ``device``: CUDA unless the caller asks for
-    the CPU."""
-    device = resolve_device(device)
+    the CPU, the meta device when ``abstract``."""
+    device = resolve_device(device, abstract)
     KH = kv_heads or cfg.n_kv_heads
     T_cache = min(window, max_len) if window else max_len
     shape = (batch, T_cache, KH, cfg.head_dim)

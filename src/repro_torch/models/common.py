@@ -7,6 +7,8 @@ tree.  Random init draws from an explicit `torch.Generator`, on the
 generator's device, as a normal truncated to +-2 sigma times the scale —
 the reference's distribution, though not its (threefry) numbers: parity
 tests carry the reference's weights across with `convert.params_from_numpy`.
+Abstract init (the reference's ShapeDtypeStruct leaves) gives tensors on
+the meta device: shapes and dtypes, no storage, for the dry-run.
 """
 from __future__ import annotations
 
@@ -18,20 +20,29 @@ import torch
 
 
 class Annotated(NamedTuple):
-    value: Any                      # torch.Tensor
+    value: Any                      # torch.Tensor (meta when abstract)
     axes: tuple                     # logical axis names, len == value.ndim
 
 
 @dataclasses.dataclass
 class Init:
-    """Parameter factory drawing from ``gen`` on the generator's device.
+    """Parameter factory: concrete (drawing from ``gen`` on the
+    generator's device) or abstract (meta tensors, no generator).
 
     `prefix` prepends stacked-layer dims (logical axis "layers") to every
     param, to build the [L, ...] weight stacks in one shot.
     """
-    gen: torch.Generator
+    gen: torch.Generator | None = None
     dtype: Any = torch.float32
+    abstract: bool = False
     prefix: tuple = ()
+
+    def __post_init__(self):
+        if self.abstract and self.gen is not None:
+            raise ValueError("an abstract Init draws nothing: pass no "
+                             "generator")
+        if not self.abstract and self.gen is None:
+            raise ValueError("a concrete Init draws from a generator")
 
     def stacked(self, *ns: int) -> "Init":
         return dataclasses.replace(self, prefix=self.prefix + tuple(ns))
@@ -46,6 +57,9 @@ class Init:
             scale = 1.0 / math.sqrt(max(fan_in, 1))
         full_shape = tuple(self.prefix) + shape
         full_axes = ("layers",) * len(self.prefix) + tuple(axes)
+        if self.abstract:
+            return Annotated(torch.empty(full_shape, dtype=self.dtype,
+                                         device="meta"), full_axes)
         dev = self.gen.device
         if kind == "zeros":
             v = torch.zeros(full_shape, dtype=self.dtype, device=dev)

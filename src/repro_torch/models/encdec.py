@@ -43,9 +43,11 @@ def init_dec_block(cfg, ini: Init) -> dict:
     }
 
 
-def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
-    """Annotated parameter tree, drawn from ``gen`` on its device."""
-    ini = Init(gen=gen, dtype=dtype)
+def init_lm(cfg, gen: torch.Generator | None = None, dtype=torch.float32,
+            abstract: bool = False) -> dict:
+    """Annotated parameter tree, drawn from ``gen`` on its device (meta
+    tensors and no generator when ``abstract``)."""
+    ini = Init(gen=gen, dtype=dtype, abstract=abstract)
     return {
         "embed": init_embedding(cfg, ini),
         "encoder": tfm.init_block(cfg, ini.stacked(cfg.enc_layers),
@@ -131,10 +133,12 @@ def lm_logits(cfg, params, batch, *, activ_dtype=torch.bfloat16,
                                          device=logits.device)
 
 
-def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):
-    """Empty caches on ``device`` (CUDA unless asked): the decoder's
-    stacked self caches and zero cross K/V of max_len rows."""
-    dev = resolve_device(device)
+def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None,
+                       abstract: bool = False):
+    """Empty caches on ``device`` (CUDA unless asked, meta when
+    ``abstract``): the decoder's stacked self caches and zero cross K/V of
+    max_len rows."""
+    dev = resolve_device(device, abstract)
     L = cfg.dec_layers
     c = init_cache(cfg, batch, max_len, dtype, device=dev)
     xshape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)

@@ -188,9 +188,11 @@ def mamba_fwd(cfg, p: dict, u: torch.Tensor) -> torch.Tensor:
     return out[:, :S0] if pad else out
 
 
-def init_mamba_state(cfg, batch: int, dtype, device=None) -> MambaState:
-    """Zero state on ``device``: CUDA unless the caller asks for the CPU."""
-    dev = resolve_device(device)
+def init_mamba_state(cfg, batch: int, dtype, device=None,
+                     abstract: bool = False) -> MambaState:
+    """Zero state on ``device``: CUDA unless the caller asks for the CPU,
+    the meta device when ``abstract``."""
+    dev = resolve_device(device, abstract)
     d_in, nh, ns, hd = dims(cfg)
     conv_dim = d_in + 2 * ns
     return MambaState(

@@ -210,13 +210,13 @@ def stack_fwd(cfg, p: dict, x, positions, *, remat: str = "full",
     return x, (torch.stack(H_out) if moe else router_H), aux_total
 
 
-def init_model_state(cfg, device=None) -> ModelState:
+def init_model_state(cfg, device=None, abstract: bool = False) -> ModelState:
     """The router queues of a MoE model (zeros), on ``device``: CUDA unless
-    the caller asks for the CPU."""
+    the caller asks for the CPU, the meta device when ``abstract``."""
     if cfg.family == "moe":
         return ModelState(router_H=torch.zeros(
             (cfg.n_layers, cfg.n_experts), dtype=torch.float32,
-            device=resolve_device(device)))
+            device=resolve_device(device, abstract)))
     return ModelState(router_H=None)
 
 
@@ -259,9 +259,11 @@ def unstack(tree, n: int) -> list:
 # LM wrapper: init / loss / decode
 # ---------------------------------------------------------------------------
 
-def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
-    """Annotated parameter tree, drawn from ``gen`` on its device."""
-    ini = Init(gen=gen, dtype=dtype)
+def init_lm(cfg, gen: torch.Generator | None = None, dtype=torch.float32,
+            abstract: bool = False) -> dict:
+    """Annotated parameter tree, drawn from ``gen`` on its device (meta
+    tensors and no generator when ``abstract``)."""
+    ini = Init(gen=gen, dtype=dtype, abstract=abstract)
     return {
         "embed": init_embedding(cfg, ini),
         "stack": init_stack(cfg, ini),
@@ -304,15 +306,16 @@ def lm_loss(cfg, params, batch, *, activ_dtype=torch.bfloat16,
     return ce + aux, (H_out, {"ce": ce, "aux": aux})
 
 
-def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):
+def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None,
+                       abstract: bool = False):
     """Stacked caches mirroring the stack structure, every field with the
     stack's leading axes, on ``device`` (CUDA unless the caller asks for
-    the CPU): {"layers": [L]} or, under the local/global pattern,
-    {"local": [n_groups, k], "global": [n_groups], "tail": [tail]}, whose
-    local and tail caches hold min(window, max_len) slots (a ring) and
-    whose global caches hold max_len."""
+    the CPU, meta when ``abstract``): {"layers": [L]} or, under the
+    local/global pattern, {"local": [n_groups, k], "global": [n_groups],
+    "tail": [tail]}, whose local and tail caches hold min(window, max_len)
+    slots (a ring) and whose global caches hold max_len."""
     _check_family(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, abstract)
 
     def stacked(prefix, window=None):
         return stack_state(prefix, init_cache(cfg, batch, max_len, dtype,

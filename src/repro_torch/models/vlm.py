@@ -16,11 +16,13 @@ from . import transformer as tfm
 from .common import Init, cross_entropy, init_norm, norm
 
 
-def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
+def init_lm(cfg, gen: torch.Generator | None = None, dtype=torch.float32,
+            abstract: bool = False) -> dict:
     """The backbone's tree (`transformer.init_lm`) plus the projector,
-    drawn from ``gen`` in that order."""
-    p = tfm.init_lm(cfg, gen, dtype=dtype)
-    ini = Init(gen=gen, dtype=dtype)
+    drawn from ``gen`` in that order (meta tensors and no generator when
+    ``abstract``)."""
+    p = tfm.init_lm(cfg, gen, dtype=dtype, abstract=abstract)
+    ini = Init(gen=gen, dtype=dtype, abstract=abstract)
     p["projector"] = {
         "ln": init_norm(cfg, ini, cfg.d_model),
         "w1": ini.param((cfg.d_model, cfg.d_model), ("embed", "ff")),

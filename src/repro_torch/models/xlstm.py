@@ -13,10 +13,11 @@ default).  The mLSTM's head dim is 2 d_model / n_heads, not
 Neither block reaches a Pallas kernel in the reference, and both are plain
 torch here.  The reference's `mlstm_fwd` constrains its query-sequence
 axis under context parallelism; that only shards, and on one device it
-changes nothing, so it is left out (the dry-run stack ports sharding).
-The sLSTM's `lax.scan` over time is a Python loop over tokens in eager
-torch; the cell's input projections, which do not depend on the
-recurrence, are one product over all tokens before the loop.
+changes nothing, so it is left out.  The sLSTM's `lax.scan` over time is
+a Python loop over tokens in eager torch; the cell's input projections,
+which do not depend on the recurrence, are one product over all tokens
+before the loop.  Under the dry-run's `runtime.flags.single_slstm_step`
+(meta tensors only) the loop runs one step (`slstm_scan`).
 
 `mlstm_decode` and `slstm_decode` update the caller's state in place (its
 tensors may be views of a stacked cache) and return it;
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..runtime import flags
 from . import transformer as tfm
 from .common import (Init, cross_entropy, embed, init_embedding, init_norm,
                      norm, unembed)
@@ -127,11 +129,13 @@ def mlstm_fwd(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     return x + y @ p["wdown"].to(x.dtype)
 
 
-def init_mlstm_state(cfg, batch: int, dtype=None, device=None) -> MLSTMState:
+def init_mlstm_state(cfg, batch: int, dtype=None, device=None,
+                     abstract: bool = False) -> MLSTMState:
     """Zero float32 state on ``device``: CUDA unless the caller asks for
-    the CPU (``dtype`` is the reference's argument; the state is float32
-    whatever the activations)."""
-    dev = resolve_device(device)
+    the CPU, the meta device when ``abstract`` (``dtype`` is the
+    reference's argument; the state is float32 whatever the
+    activations)."""
+    dev = resolve_device(device, abstract)
     _, d_in, nh, hd = _dims(cfg)
     return MLSTMState(*(torch.zeros(s, dtype=torch.float32, device=dev)
                         for s in ((batch, nh, hd, hd), (batch, nh, hd),
@@ -242,7 +246,19 @@ def _post_mlp(cfg, p, x):
 
 def slstm_scan(cfg, R, bias, gx, st: SLSTMState) -> torch.Tensor:
     """The reference's `lax.scan` of `_slstm_cell` over time, as a loop
-    over tokens: gx [4, S, B, d] -> hs [B, S, d] float32."""
+    over tokens: gx [4, S, B, d] -> hs [B, S, d] float32.
+
+    Under `runtime.flags.single_slstm_step` (the dry-run's trace) the
+    loop runs its first step only and expands that step's output over
+    the S tokens: the same shapes and one step's operations.  The flag
+    refuses tensors that are not on the meta device."""
+    if flags.slstm_single_step():
+        bad = [t.device for t in (R, bias, gx, *st) if t.device.type != "meta"]
+        if bad:
+            raise RuntimeError(f"single_slstm_step traces meta tensors only; "
+                               f"got a tensor on {bad[0]}")
+        h, _ = _slstm_cell(cfg, R, bias, gx[:, 0], st)
+        return h[:, None].expand(h.shape[0], gx.shape[1], h.shape[1])
     hs = []
     # one unbind (its backward one stack), not S slices each of whose
     # backward would write a zero tensor of gx's size
@@ -262,9 +278,10 @@ def slstm_fwd(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     return _post_mlp(cfg, p, x + y)
 
 
-def init_slstm_state(cfg, batch: int, dtype=None, device=None) -> SLSTMState:
+def init_slstm_state(cfg, batch: int, dtype=None, device=None,
+                     abstract: bool = False) -> SLSTMState:
     """Zero float32 state on ``device``, resolved as `init_mlstm_state`."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, abstract)
     return SLSTMState(*(torch.zeros((batch, cfg.d_model), dtype=torch.float32,
                                     device=dev) for _ in range(4)))
 
@@ -293,9 +310,11 @@ def _groups(cfg):
     return n_groups, k - 1
 
 
-def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
-    """Annotated parameter tree, drawn from ``gen`` on its device."""
-    ini = Init(gen=gen, dtype=dtype)
+def init_lm(cfg, gen: torch.Generator | None = None, dtype=torch.float32,
+            abstract: bool = False) -> dict:
+    """Annotated parameter tree, drawn from ``gen`` on its device (meta
+    tensors and no generator when ``abstract``)."""
+    ini = Init(gen=gen, dtype=dtype, abstract=abstract)
     n_groups, km = _groups(cfg)
     return {
         "embed": init_embedding(cfg, ini),
@@ -353,12 +372,14 @@ class XLSTMCache(NamedTuple):
     slstm: SLSTMState      # stacked [n_groups]
 
 
-def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):
+def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None,
+                       abstract: bool = False):
     """Zero mLSTM states [n_groups, km] and sLSTM states [n_groups] on
-    ``device``: CUDA unless the caller asks for the CPU (``max_len`` is
-    the reference's argument; a recurrent state has no length)."""
+    ``device``: CUDA unless the caller asks for the CPU, the meta device
+    when ``abstract`` (``max_len`` is the reference's argument; a
+    recurrent state has no length)."""
     n_groups, km = _groups(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, abstract)
     mlstm = init_mlstm_state(cfg, batch, dtype, device=dev)
     slstm = init_slstm_state(cfg, batch, dtype, device=dev)
     return XLSTMCache(mlstm=tfm.stack_state((n_groups, km), mlstm),

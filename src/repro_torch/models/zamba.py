@@ -49,9 +49,11 @@ def init_stack(cfg, ini: Init) -> dict:
     }
 
 
-def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> dict:
-    """Annotated parameter tree, drawn from ``gen`` on its device."""
-    ini = Init(gen=gen, dtype=dtype)
+def init_lm(cfg, gen: torch.Generator | None = None, dtype=torch.float32,
+            abstract: bool = False) -> dict:
+    """Annotated parameter tree, drawn from ``gen`` on its device (meta
+    tensors and no generator when ``abstract``)."""
+    ini = Init(gen=gen, dtype=dtype, abstract=abstract)
     return {
         "embed": init_embedding(cfg, ini),
         "stack": init_stack(cfg, ini),
@@ -117,12 +119,13 @@ class ZambaCache(NamedTuple):
     attn: KVCache            # stacked [n_groups]
 
 
-def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None):
+def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None,
+                       abstract: bool = False):
     """Zero SSM states [n_groups, k] and the shared block's KV caches
     [n_groups] (max_len slots each) on ``device``: CUDA unless the caller
-    asks for the CPU."""
+    asks for the CPU, the meta device when ``abstract``."""
     n_groups, k = _groups(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, abstract)
     ssm = init_mamba_state(cfg, batch, dtype, device=dev)
     attn = init_cache(cfg, batch, max_len, dtype, device=dev)
     return ZambaCache(ssm=tfm.stack_state((n_groups, k), ssm),

@@ -10,8 +10,9 @@ and the decoupled weight decay as the reference writes it,
 `AdamW.update` writes the new moments and parameters into the tensors it
 is given (the reference donates them to its jitted step) and returns
 them, one leaf at a time, so that a 1.6 GB leaf needs a few temporaries
-of its own size and no copy of the whole tree.  The abstract init of the
-reference's dry-run is not ported (ROADMAP A13, launch/dryrun).
+of its own size and no copy of the whole tree.  `init_abstract` gives the
+same state on the meta device (shapes and dtypes, no storage) for the
+dry-run.
 """
 from __future__ import annotations
 
@@ -22,11 +23,6 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..models.common import tree_leaves, tree_map
-
-#: What the dry-run's abstract inits raise: that path is not ported.
-DRYRUN_ITEM = ("abstract (ShapeDtypeStruct) state serves the dry-run, "
-               "which is not ported yet (ROADMAP A13: launch/dryrun)")
-
 
 class AdamWState(NamedTuple):
     count: torch.Tensor   # [] int32
@@ -55,7 +51,13 @@ class AdamW:
             m=tree_map(zeros, params), v=tree_map(zeros, params))
 
     def init_abstract(self, params) -> AdamWState:
-        raise NotImplementedError(DRYRUN_ITEM)
+        """`init`'s state on the meta device: float32 moments of each
+        param's shape and an int32 count, nothing allocated."""
+        meta = lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                     device="meta")
+        return AdamWState(
+            count=torch.empty((), dtype=torch.int32, device="meta"),
+            m=tree_map(meta, params), v=tree_map(meta, params))
 
     def _lr(self, count: torch.Tensor) -> torch.Tensor:
         if callable(self.lr):

@@ -7,7 +7,8 @@ sparsification of ``g + residual``, the compression error carried to the
 next step as the new residual.  As in the reference, compression is
 applied to the gradient before the optimizer; the outputs and residuals
 equal the reference's bit for bit.  These are functional: they return new
-trees.  The abstract init of the reference's dry-run is not ported.
+trees.  `init_ef_abstract` gives the residuals on the meta device (the
+dry-run's state).
 """
 from __future__ import annotations
 
@@ -16,7 +17,6 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..models.common import tree_map
-from .adamw import DRYRUN_ITEM
 
 
 class EFState(NamedTuple):
@@ -30,7 +30,9 @@ def init_ef(params) -> EFState:
 
 
 def init_ef_abstract(params) -> EFState:
-    raise NotImplementedError(DRYRUN_ITEM)
+    return EFState(err=tree_map(
+        lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"),
+        params))
 
 
 def _q_int8(g):

@@ -1,21 +1,27 @@
 """Process-local model flags.
 
-Port of `repro.runtime.flags`' two attention flags: each is a
-`contextvars.ContextVar` with the reference's default, set for the span
-of a context manager and read by its reader.
+Port of `repro.runtime.flags`: each flag is a `contextvars.ContextVar`
+with the reference's default, set for the span of a context manager and
+read by its reader.
 
   * `attention_impl` / `attn_impl`: "naive" (materialized scores) or
     "chunked" (`models.attention.sdpa_chunked`, and `sdpa_banded` for
-    causal sliding-window layers).
+    causal sliding-window layers).  `models.attention.attention` reads
+    it off the card; on CUDA the core is the flash kernel either way.
   * `context_parallel` / `ctx_par`: the reference shards the query
-    sequence over the model axis; on one device it keeps the whole query
-    sequence as one chunk.
+    sequence over the model axis; on one device the chunked core keeps
+    the whole query sequence as one chunk.
+  * `single_slstm_step` / `slstm_single_step`: the port's own, set by the
+    dry-run (`launch.dryrun`) around its trace: `models.xlstm.slstm_scan`
+    steps its time loop once and expands that step over the sequence,
+    and the dry-run adds the other steps' cost from its own count of
+    short traces (`launch.dryrun._slstm_correction`).  It refuses any tensor that is
+    not on the meta device, so it never changes a real run.
 
-Their reader is the dry-run stack (ROADMAP A13), which sets them from
-`RunConfig.attn_impl`/`ctx_par`; the port's `attention` does not read
-them yet (on the CPU it is `sdpa`, on the card the flash kernel).  The
-reference's `seq_parallel_tp` and `unrolled_scans` change nothing on one
-device in eager torch and are left out.
+The reference's `unrolled_scans` and `seq_parallel_tp` are left out: the
+port's `layer_scan` is a Python loop, so a trace sees every layer
+already, and sequence-parallel TP only shards, which changes nothing on
+one device.
 
 `layer_scan(f, init, xs)` is the reference's `lax.scan` over a stack as
 a Python loop over the leading axis of ``xs``.
@@ -29,6 +35,7 @@ import torch
 
 _ATTN = contextvars.ContextVar("repro_attn_impl", default="naive")
 _CTX_PAR = contextvars.ContextVar("repro_ctx_par", default=False)
+_SLSTM_ONE = contextvars.ContextVar("repro_slstm_one_step", default=False)
 
 
 @contextlib.contextmanager
@@ -58,6 +65,15 @@ def context_parallel(on: bool = True):
 
 def ctx_par() -> bool:
     return _CTX_PAR.get()
+
+
+def single_slstm_step(on: bool = True):
+    """The dry-run's sLSTM time loop of one step (module docstring)."""
+    return _setting(_SLSTM_ONE, on)
+
+
+def slstm_single_step() -> bool:
+    return _SLSTM_ONE.get()
 
 
 def _leaves(xs) -> list:

@@ -7,8 +7,9 @@ the step outside the gradient, like the paper's H_n.  The reference jits
 its steps and hands sharding metadata to the launcher; the port runs them
 eagerly on the device its tensors lie on (the state's axes trees are
 still returned, for the reference's signature), the prefill under
-`torch.inference_mode()` (nothing needs a gradient).  The reference's
-abstract (dry-run) state is not ported (ROADMAP A13).
+`torch.inference_mode()` (nothing needs a gradient).  Abstract state
+(``init_train_state(rcfg, abstract=True)``) lies on the meta device: the
+reference's ShapeDtypeStruct tree, which the dry-run traces.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ from ..device import resolve_device
 from ..models import get_model, split_tree
 from ..models.common import tree_leaves, tree_map
 from ..optim import (AdamW, AdamWState, EFState, compress_int8_ef,
-                     compress_topk_ef, init_ef, warmup_cosine)
-from ..optim.adamw import DRYRUN_ITEM
+                     compress_topk_ef, init_ef, init_ef_abstract,
+                     warmup_cosine)
 
 COMPRESSIONS = {"none": None, "int8_ef": compress_int8_ef,
                 "topk_ef": compress_topk_ef}
@@ -44,28 +45,33 @@ def make_optimizer(total_steps: int = 10_000) -> AdamW:
     return AdamW(lr=warmup_cosine(3e-4, warmup=200, total=total_steps))
 
 
-def init_train_state(rcfg: RunConfig, gen: torch.Generator, *, device=None,
-                     abstract: bool = False,
+def init_train_state(rcfg: RunConfig, gen: torch.Generator | None = None,
+                     *, device=None, abstract: bool = False,
                      optimizer: AdamW | None = None):
     """Returns (state, state_axes): params drawn from ``gen`` in
     ``rcfg.param_dtype``, zero moments, zero router queues and, with
     gradient compression, zero residuals, on ``device`` (CUDA unless
-    asked, raising without a card; ``gen`` must draw on that device)."""
-    if abstract:
-        raise NotImplementedError(DRYRUN_ITEM)
-    dev = resolve_device(device)
-    if gen.device.type != dev.type:
-        raise ValueError(f"the generator draws on {gen.device}, the state "
-                         f"lives on {dev}")
+    asked, raising without a card; ``gen`` must draw on that device).
+    With ``abstract`` the same tree lies on the meta device, drawn from
+    no generator and allocating nothing."""
+    dev = resolve_device(device, abstract)
+    if not abstract and (gen is None or gen.device.type != dev.type):
+        raise ValueError(f"the state on {dev} needs a generator drawing "
+                         f"there, got {gen and gen.device}")
     api = get_model(rcfg.model)
     opt = optimizer or make_optimizer()
     params, p_axes = split_tree(api.init(gen, dtype=_dtype(
-        rcfg.param_dtype)))
+        rcfg.param_dtype), abstract=abstract))
     H = api.init_state(device=dev).router_H
-    ef = None if rcfg.grad_compression == "none" else init_ef(params)
+    if rcfg.grad_compression == "none":
+        ef = None
+    else:
+        ef = init_ef_abstract(params) if abstract else init_ef(params)
     state = TrainState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                       params=params, opt=opt.init(params), router_H=H,
-                       ef=ef)
+                       params=params,
+                       opt=(opt.init_abstract(params) if abstract
+                            else opt.init(params)),
+                       router_H=H, ef=ef)
     axes = TrainState(
         step=(),
         params=p_axes,

@@ -104,11 +104,23 @@ def test_adamw_keeps_bf16_params_and_f32_moments():
     assert p["w"].dtype == torch.bfloat16 and float(p["w"][0, 0]) < 1.0
 
 
-def test_abstract_inits_raise_naming_the_dryrun():
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        toptim.AdamW().init_abstract({"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        toptim.init_ef_abstract({"w": torch.zeros(2)})
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abstract_inits_are_the_reference_trees_on_meta(dtype):
+    """`init_abstract` and `init_ef_abstract` of meta params: the
+    reference's abstract leaves (float32 moments and residuals, an int32
+    count), on the meta device, nothing allocated."""
+    _, jp, tp = trees(1)
+    tp = tree_map(lambda a: torch.empty(a.shape, dtype=dtype,
+                                        device="meta"), tp)
+    got = toptim.AdamW().init_abstract(tp)
+    want = joptim.AdamW().init_abstract(jp)
+    ef, jef = toptim.init_ef_abstract(tp), joptim.init_ef_abstract(jp)
+    leaves = [got.count] + tree_leaves(got.m) + tree_leaves(got.v) \
+        + tree_leaves(ef.err)
+    ref = jax.tree_util.tree_leaves(want) + jax.tree_util.tree_leaves(jef)
+    assert [(tuple(a.shape), str(a.dtype), a.device.type) for a in leaves] \
+        == [(tuple(b.shape), f"torch.{np.dtype(b.dtype).name}", "meta")
+            for b in ref]
 
 
 @pytest.mark.parametrize("which", ["int8", "topk"])

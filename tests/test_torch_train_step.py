@@ -129,9 +129,17 @@ def test_train_state_tree_and_checkpoint_round_trip(tmp_path):
         assert torch.equal(a, b)
     assert int(back.step) == int(back.opt.count) == 1
     assert torch.equal(back.router_H, state.router_H)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tstep.init_train_state(rcfg, torch.Generator(), device="cpu",
-                               abstract=True)
+    # the abstract state: the same tree and axes on the meta device
+    meta, meta_axes = tstep.init_train_state(rcfg, abstract=True)
+    assert meta_axes == axes
+    concrete = ([fresh.step, fresh.opt.count, fresh.router_H]
+                + tree_leaves(fresh.params) + tree_leaves(fresh.opt.m)
+                + tree_leaves(fresh.opt.v) + tree_leaves(fresh.ef.err))
+    abstract = ([meta.step, meta.opt.count, meta.router_H]
+                + tree_leaves(meta.params) + tree_leaves(meta.opt.m)
+                + tree_leaves(meta.opt.v) + tree_leaves(meta.ef.err))
+    assert [(a.shape, a.dtype, a.device.type) for a in abstract] == [
+        (b.shape, b.dtype, "meta") for b in concrete]
 
 
 # ---------------------------------------------------------------------------
