@@ -23,6 +23,10 @@ eager ops) with its decisions through the B1/B2 wrappers: on the card it
 launches `slot_route_decide` once and `comp_balance_decide` once or twice
 per slot among a few hundred eager ops.  The tests and `chip_smoke.py`
 hold the fused kernel to it.
+
+`bp_route_slot` and `computation_slot` are the reference's two phases of
+a slot under its names, on the batched state: `slot_step_plain`'s routing
+and computation steps, their decisions through the B1/B2 wrappers.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from repro_torch.kernels.bp_slot.kernel import (comp_balance_decide,
                                                 slot_route_decide,
                                                 slot_step_fused)
 from repro_torch.kernels.bp_slot.ref import (PROBLEM_LEAVES, STATE_LEAVES,
-                                             slot_step_plain)
+                                             comp_balance, compute_slot,
+                                             route_slot, slot_step_plain)
 
 from .queues import NetState
 
@@ -132,3 +137,48 @@ def slot_step_ref(pp, cfg: PolicyConfig, state: NetState,
     two decisions through the B1/B2 wrappers."""
     return _step(slot_step_plain, pp, cfg, state, arrivals, reg_draws, eps_b,
                  route=slot_route_decide, balance=comp_balance_decide)
+
+
+# ---------------------------------------------------------------------------
+# The slot's phases under the reference's names
+# ---------------------------------------------------------------------------
+
+def _leaves(pp, state: NetState):
+    return ({k: getattr(pp, k) for k in PROBLEM_LEAVES},
+            {k: getattr(state, k) for k in STATE_LEAVES})
+
+
+def bp_route_slot(pp, state: NetState, wireless: bool = False
+                  ) -> Tuple[NetState, Dict]:
+    """One slot of max-differential-backlog routing over every link of
+    every sim (`repro.core.policies.bp_route_slot`; greedy maximal matching
+    when ``wireless``).  Returns (state, {"routed": [B]})."""
+    p, s = _leaves(pp, state)
+    s, routed = route_slot(p, s, wireless, route=slot_route_decide)
+    return NetState(**s), {"routed": routed}
+
+
+def computation_slot(pp, cfg: PolicyConfig, state: NetState,
+                     assigned: torch.Tensor,
+                     reg_draws: torch.Tensor | None = None,
+                     eps_b: torch.Tensor | None = None
+                     ) -> Tuple[NetState, Dict]:
+    """Combine pairs at every computation node and push the output through
+    the regulator (regulated policies, whose bits ``reg_draws`` [B, NC]
+    replace the reference's key) or straight on
+    (`repro.core.policies.computation_slot`).  ``assigned`` [B, NC] are the
+    slot's queries per node; ``eps_b`` [B] defaults to ``cfg.eps_b``.
+    Returns (state, {"computed": [B]})."""
+    if cfg.use_regulator and reg_draws is None:
+        raise ValueError(f"policy {cfg.name!r} needs regulator draws")
+    p, s = _leaves(pp, state)
+    if eps_b is None:
+        eps_b = torch.full((state.Q.shape[0],), cfg.eps_b,
+                           dtype=torch.float32, device=state.Q.device)
+    Z, _ = comp_balance(p, s, eps_b, pairing=cfg.pairing,
+                        thresholded=cfg.thresholded, threshold=cfg.threshold,
+                        balance=comp_balance_decide)
+    s = compute_slot(p, s, Z, assigned.to(torch.float32),
+                     reg_draws.to(torch.float32) if cfg.use_regulator
+                     else None)
+    return NetState(**s), {"computed": Z.sum(1)}

@@ -1,0 +1,60 @@
+"""A block of slots captured once into a CUDA graph and replayed.
+
+The capture and the launch accounting shared by the fleet's `GroupLaunch`
+(`repro_torch.fleet.engine`) and the trace simulator's `TraceLaunch`
+(`repro_torch.sim.simulator`).  A slot step launched while a stream is
+captured counts in ``slot_step_fused.captured``, not in ``.launches``; a
+replay of the graph launches those kernels again and adds them to
+``slot_step_fused.replayed``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.bp_slot.kernel import slot_step_fused
+
+#: Slots one captured CUDA graph advances; a fleet chunk replays it
+#: chunk / gcd(chunk, GRAPH_SLOTS) times.  At the fleet's ≈380 launches a
+#: slot, a graph of 64 slots holds about 24,000 nodes.
+GRAPH_SLOTS = 64
+
+
+def launch_device(device) -> torch.device:
+    """``device`` with the current CUDA index made explicit, so that two
+    spellings of one card key one memoized launch."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class CapturedSlots:
+    """One captured block of ``block`` slots: ``graph`` (None until
+    `capture`, or after a launch drops it), ``captured`` the fused
+    slot-step launches it holds, ``n_captures`` the captures made and
+    ``replays`` the replays."""
+
+    def __init__(self, block: int):
+        self.block = block
+        self.graph = None
+        self.captured = 0
+        self.n_captures = 0
+        self.replays = 0
+
+    def capture(self, advance) -> None:
+        """Capture ``advance()``, the block's slots on static tensors; a
+        failed capture raises."""
+        graph = torch.cuda.CUDAGraph()
+        before = slot_step_fused.captured
+        with torch.cuda.graph(graph):
+            advance()
+        self.captured = slot_step_fused.captured - before
+        self.graph = graph
+        self.n_captures += 1
+
+    def replay(self, n: int = 1) -> None:
+        """``n`` replays of the captured block, back to back."""
+        for _ in range(n):
+            self.graph.replay()
+        self.replays += n
+        slot_step_fused.replayed += n * self.captured

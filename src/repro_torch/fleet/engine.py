@@ -57,11 +57,11 @@ from repro_torch.core.queues import (DriftStats, NetState, VERDICT_NAMES,
                                      VERDICT_UNSTABLE, drift_verdict_update,
                                      init_state)
 from repro_torch.device import resolve_device, tree_leaves
-from repro_torch.kernels.bp_slot.kernel import slot_step_fused
 from repro_torch.kernels.bp_slot.ref import kahan_add
 from repro_torch.obs.emitter import ChunkEmitter, open_sink
 from repro_torch.sim import workload
 from .batching import PadDims, PaddedProblem, from_leaves, pad_leaves
+from .capture import GRAPH_SLOTS, CapturedSlots, launch_device
 from .scenarios import (ARRIVAL_MODEL_ORDER, ARRIVAL_MODELS,
                         COMP_NOISE_EVENTS, EVENT_MODEL_ORDER, EVENT_MODELS,
                         LINK_NOISE_EVENTS, ModState, arrival_code,
@@ -224,8 +224,7 @@ def slot_events(inp, t, mod):
 
 def regulator_draws(inp, t) -> torch.Tensor:
     """The regulator's Bernoulli(eps_b) draws of one slot, [B, NC]."""
-    u = workload.uniform(inp.seed, t, workload.SITE_REGULATOR, inp.pp.n_comp)
-    return (u < inp.eps_b[:, None]).to(torch.float32)
+    return workload.regulator_bits(inp.seed, t, inp.eps_b, inp.pp.n_comp)
 
 
 def slot_accounting(runner, s: StreamStats, d: DriftStats, t, m: Dict,
@@ -474,12 +473,6 @@ def stream_simulate(problem: ComputeProblem, cfg: PolicyConfig, lam: float,
     return {k: float(v[0]) for k, v in out.items()}
 
 
-#: Slots one captured CUDA graph advances; a chunk replays it
-#: chunk / gcd(chunk, GRAPH_SLOTS) times.  At the fleet's ≈380 launches a
-#: slot, a graph of 64 slots holds about 24,000 nodes.
-GRAPH_SLOTS = 64
-
-
 def _write(dst, src) -> None:
     """Copy every tensor of tree ``src`` into the same leaf of ``dst``."""
     for d, s_ in zip(tree_leaves(dst), tree_leaves(src)):
@@ -507,7 +500,7 @@ def _widen(cdf: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
-class GroupLaunch:
+class GroupLaunch(CapturedSlots):
     """The chunk step of one group at one batch shape, on tensors allocated
     once: the port's counterpart of the reference's compiled chunk-step
     programs (`repro.fleet.engine.make_group_launch`).
@@ -531,27 +524,25 @@ class GroupLaunch:
     sized once, for the largest rate `start` is told the lanes may probe;
     a rate that needs a wider table reallocates it and captures again.
     ``n_compiles`` counts the captures (on the CPU, where `step` runs the
-    runner's eager ``chunk_step``, it is 1: the launcher made),
-    ``replays`` the graph replays, ``captured`` the fused slot-step
-    launches one replay makes."""
+    runner's eager ``chunk_step``, it is 1: the launcher made); the
+    capture and its counts (``replays``, ``captured``) are
+    `CapturedSlots`'."""
 
     def __init__(self, runner, batch: int, dims, device: torch.device,
                  *codes):
+        super().__init__(math.gcd(runner.chunk, GRAPH_SLOTS))
         self.runner = runner
         self.batch = batch
         self.dims = dims
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = launch_device(device)
         self.codes = codes
-        self.block = math.gcd(runner.chunk, GRAPH_SLOTS)
         self.inp = None
         self.carry = None
-        self.graph = None
-        self.n_compiles = 0 if self.device.type == "cuda" else 1
-        self.replays = 0
-        self.captured = 0
         self._kinds = np.zeros(batch, np.int32)
+
+    @property
+    def n_compiles(self) -> int:
+        return self.n_captures if self.device.type == "cuda" else 1
 
     def _table(self, lam, kinds, width: int = 0) -> torch.Tensor:
         return self.runner.table(lam, kinds, self.device, width)
@@ -591,15 +582,9 @@ class GroupLaunch:
             inp, cdf=_widen(inp.cdf, self.inp.cdf.shape[-1])))
         _write(self.carry, self.runner.init_carry(self.inp.pp))
 
-    def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
-        before = slot_step_fused.captured
-        with torch.cuda.graph(graph):
-            for _ in range(self.block):
-                self.runner.advance(self.inp, self.carry)
-        self.captured = slot_step_fused.captured - before
-        self.graph = graph
-        self.n_compiles += 1
+    def _block(self) -> None:
+        for _ in range(self.block):
+            self.runner.advance(self.inp, self.carry)
 
     def step(self) -> None:
         """Advance every sim by one chunk of slots, in place."""
@@ -608,14 +593,10 @@ class GroupLaunch:
             return
         replays = self.runner.chunk // self.block
         if self.graph is None:
-            for _ in range(self.block):
-                self.runner.advance(self.inp, self.carry)
-            self._capture()
+            self._block()
+            self.capture(self._block)
             replays -= 1
-        for _ in range(replays):
-            self.graph.replay()
-        self.replays += replays
-        slot_step_fused.replayed += replays * self.captured
+        self.replay(replays)
 
     def rewrite(self, reset, park, lam=None, seed=None) -> None:
         """The per-sim rewrite between chunks (`make_sim_rewriter`)."""

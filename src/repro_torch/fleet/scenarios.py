@@ -65,9 +65,7 @@ def _arrival_poisson(lam, u, u_phase, cdf, mod):
 
 
 def _arrival_bernoulli_batch(lam, u, u_phase, cdf, mod):
-    batch = 4
-    p = torch.clamp(lam.to(torch.float32) / batch, max=1.0)
-    return (u < p.to(u.dtype)).to(torch.float32) * batch, mod
+    return workload.bernoulli_from_uniform(u, lam), mod
 
 
 def _arrival_constant(lam, u, u_phase, cdf, mod):

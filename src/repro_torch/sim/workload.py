@@ -12,6 +12,13 @@ depends only on its own seed and slot, never on its lane or its batch; a
 frozen sim (whose slot counter stops) keeps its stream pinned; and the CPU
 and the GPU give the same draws bit for bit.
 
+The arrival laws of the reference are here under its names
+(`poisson_arrivals`, `bernoulli_batch_arrivals`, `constant_arrivals`),
+each returning float32 counts on an explicit device; the fleet's arrival
+models turn the same uniforms into the same counts
+(`poisson_from_uniform`, `bernoulli_from_uniform`), so a sim's trace and a
+fleet lane with its seed draw alike.
+
 Poisson counts come from a per-sim inverse-CDF table built once per run
 (each sim's rate is fixed for a run), so a slot's draw is one comparison
 against the table instead of a sampling loop.  Each row is padded with 1.0
@@ -82,9 +89,36 @@ def uniform64(seed: torch.Tensor, t: torch.Tensor, site: int,
     return bits.to(torch.float64) * (2.0 ** -53)
 
 
+def regulator_bits(seed: torch.Tensor, t: torch.Tensor, eps_b: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """[B, n] float32 Bernoulli(eps_b[b]) outcomes of the regulator at each
+    sim's slot t[b] (0.0 / 1.0)."""
+    u = uniform(seed, t, SITE_REGULATOR, n)
+    return (u < eps_b[:, None]).to(torch.float32)
+
+
+def seed_of(seed) -> int:
+    """An int seed as it is, or one drawn from a `torch.Generator` (the
+    counter-based stream is keyed by an integer either way)."""
+    if isinstance(seed, torch.Generator):
+        return int(torch.randint(0, 2 ** 62, (1,), generator=seed,
+                                 device=seed.device))
+    return int(seed)
+
+
+def _slot_uniforms(seed, T: int, dev) -> torch.Tensor:
+    """[T] float64 arrival uniforms of slots 0..T-1 under ``seed``."""
+    t = torch.arange(T, device=dev)
+    s = torch.full((T,), seed_of(seed), dtype=torch.long, device=dev)
+    return uniform64(s, t, SITE_ARRIVAL, 1)[:, 0]
+
+
 # ---------------------------------------------------------------------------
 # Arrival laws
 # ---------------------------------------------------------------------------
+
+#: Queries per burst of `bernoulli_batch_arrivals` (the reference's default).
+BURST = 4
 
 #: Truncation of the Poisson inverse-CDF tables: the mass left beyond the
 #: last column is below this.
@@ -126,8 +160,35 @@ def poisson_arrivals(lams, T: int, seed: int = 0,
     ``device``: CUDA unless the caller asks for the CPU."""
     dev = resolve_device(device)
     cdf = poisson_table(lams, device=dev)
-    t = torch.arange(T, device=dev)
-    s = torch.full((T,), int(seed), dtype=torch.long, device=dev)
-    u = uniform64(s, t, SITE_ARRIVAL, 1)[:, 0]                       # [T]
+    u = _slot_uniforms(seed, T, dev)                                 # [T]
     return torch.stack([poisson_from_uniform(u, row.expand(T, -1))
                         for row in cdf])
+
+
+def bernoulli_from_uniform(u: torch.Tensor, lam: torch.Tensor,
+                           batch: int = BURST) -> torch.Tensor:
+    """Bursts of ``batch`` queries where u < min(lam / batch, 1), else 0
+    (float32; ``u`` and ``lam`` broadcast)."""
+    p = torch.clamp(lam.to(torch.float32) / batch, max=1.0)
+    return (u < p.to(u.dtype)).to(torch.float32) * batch
+
+
+def bernoulli_batch_arrivals(lam, T: int, seed=0, device=None,
+                             batch: int = BURST) -> torch.Tensor:
+    """[..., T] arrivals in bursts of ``batch`` at mean rate ``lam`` (a
+    scalar or an array of rates; the bursty stress test), from the
+    arrival uniforms of ``seed`` (an int or a `torch.Generator`): every
+    rate sees the same uniforms, and a fleet lane under the
+    ``bernoulli_batch`` model with this seed draws the same trace."""
+    dev = resolve_device(device)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
+    return bernoulli_from_uniform(_slot_uniforms(seed, T, dev),
+                                  lam[..., None], batch)
+
+
+def constant_arrivals(lam, T: int, device=None) -> torch.Tensor:
+    """[..., T] deterministic fluid arrivals, ``lam`` every slot (exact
+    capacity checks); it draws nothing, so it takes no seed."""
+    dev = resolve_device(device)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
+    return lam[..., None].expand(*lam.shape, T).contiguous()
