@@ -38,8 +38,8 @@ on failure:
      the eager `chunk_step` loop on the same sims: every metric and verdict
      bit-identical, ms per batched slot of each; a profiler trace of one
      replay, whose bp_slot_step kernels must be the 64 slots it holds,
-     gives CUDA activities and device time per slot, and the idle share
-     of a chunk of replays; then `phase_slot_step`: the fused kernel against the
+     gives CUDA activities and device time per slot; then
+     `phase_slot_step`: the fused kernel against the
      plain slot step on the card and on the CPU, teacher-forced, 256 slots
      of the 1,512 sims and 32 slots of each other policy (pi1, pi1p, pi2
      with bound pairing, pi3bar, pi3 on wireless_grid), n*, Z and the
@@ -1262,31 +1262,17 @@ def main_runner():
         chunk=CHUNK_MAIN, verdict=engine.resolve_verdict(None, True))
 
 
-def profile_graph(launch, chunk: int, what: str):
+def profile_graph(launch, what: str):
     """One replay of ``launch``'s captured graph, traced: its bp_slot_step
     kernels must be the slots the graph holds (what the launch counts
     multiply by; a trace that lost records is taken again, up to
-    PROFILE_TRIES); CUDA activities and device time per slot, and the
-    device's idle share of a chunk's time: the time between CUDA events
-    around the chunk / block replays one chunk queues back to back, as
-    `GroupLaunch.step` does (None, not measured, where the traced device
-    time exceeds it).  Returns (activities per slot, device us per slot,
-    idle share)."""
+    PROFILE_TRIES); CUDA activities and device time per slot.  Returns
+    (activities per slot, device us per slot)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     check(launch.graph is not None, f"profile: the {what} launcher holds "
           "no captured graph")
     graph, block = launch.graph, launch.block
-    per_chunk = chunk // block
-    walls = []
-    for _ in range(3):                   # chunks on the run's carry
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        for _ in range(per_chunk):
-            graph.replay()
-        e.record()
-        torch.cuda.synchronize()
-        walls.append(s.elapsed_time(e) / per_chunk)
     for attempt in range(PROFILE_TRIES):
         if attempt:
             time.sleep(PROFILE_RETRY_S)
@@ -1311,35 +1297,25 @@ def profile_graph(launch, chunk: int, what: str):
     per_slot = len(dev_events) / block
     dev_us = sum(e.device_time for e in dev_events) / block
     fused_us = sum(e.device_time for e in fused) / block
-    wall_us = statistics.median(walls) * 1e3 / block
     kinds = {}
     for e in dev_events:
         kinds[e.name] = kinds.get(e.name, 0) + 1
     top_kinds = sorted(kinds.items(), key=lambda kv: -kv[1])[:8]
-    # A profiled replay's device time above the wall time of an untraced
-    # one is the profiler's own cost; the idle share is then not measured.
-    idle = 1.0 - dev_us / wall_us if dev_us <= wall_us else None
     log(f"profile: one replay of the {what} {block}-slot graph at "
         f"B={launch.batch}: {len(fused)} bp_slot_step kernels (= slots in "
         f"the graph), {per_slot:.2f} CUDA device activities per slot, "
-        f"{dev_us:.2f} us of device time per slot against "
-        f"{wall_us:.2f} us per slot between CUDA events around a chunk of "
-        f"{per_chunk} replays (median of {len(walls)}): the device is idle "
-        + (f"{idle:.4f} of a chunk" if idle is not None else
-           "a share not measured (the traced device time exceeds the "
-           "untraced wall time)")
-        + f"; the fused slot step "
+        f"{dev_us:.2f} us of device time per slot; the fused slot step "
         f"{fused_us:.2f} us per slot, {fused_us / dev_us:.4f} of the device "
         f"time; most frequent: "
         + "; ".join(f"{n[:60]} x{c / block:.2f}" for n, c in top_kinds))
-    return per_slot, dev_us, idle
+    return per_slot, dev_us
 
 
 def phase_profile(dev):
     """`profile_graph` on the main path's launcher, after `phase_main`."""
     from repro_torch.fleet import engine
     _, inp = main_batch(dev)
-    return profile_graph(engine.launch_for(main_runner(), inp), CHUNK_MAIN,
+    return profile_graph(engine.launch_for(main_runner(), inp),
                          "main path's")[0]
 
 
@@ -1964,7 +1940,7 @@ def phase_serving(dev):
     launch = engine.make_group_launch(
         runner, len(jobs), dims,
         torch.device("cuda", torch.cuda.current_device()), codes)
-    profile_graph(launch, CHUNK_MAIN, f"serving path's ({SERVING_TRACE})")
+    profile_graph(launch, f"serving path's ({SERVING_TRACE})")
     return fused["launched"], walls, res
 
 
@@ -2776,8 +2752,7 @@ def phase_paper_figures(dev) -> int:
         launched += r9["launched"] + r1["launched"]
         ms[name] = {"B=9": r9["ms"], "B=1": r1["ms"]}
         if name == "pi3":
-            profile_graph(r9["launch"], 8 * r9["launch"].block,
-                          "trace runner's (fig5b C=3 pi3)")
+            profile_graph(r9["launch"], "trace runner's (fig5b C=3 pi3)")
     for name in ("pi3", "pi3bar"):
         card_against_cpu(dev, grid3, PolicyConfig(name=name, eps_b=0.01),
                          figs.LAMS[3.0], 7, f"fig5b C=3 {name}")

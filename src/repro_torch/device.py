@@ -37,6 +37,17 @@ def resolve_device(device=None, abstract: bool = False) -> torch.device:
     return torch.device("cuda")
 
 
+def upload(array, device, dtype=None) -> torch.Tensor:
+    """``array`` as a tensor on ``device``.  To a card it goes through
+    pinned memory without blocking: a copy from pageable memory would
+    make the host wait for all the work queued on the stream (PyTorch
+    synchronises the stream after one)."""
+    if device is None or torch.device(device).type != "cuda":
+        return torch.as_tensor(array, dtype=dtype, device=device)
+    host = torch.as_tensor(array, dtype=dtype)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 def tree_leaves(x) -> list:
     """The tensors of a tree of dataclasses, in field order."""
     if not dataclasses.is_dataclass(x):

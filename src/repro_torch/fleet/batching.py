@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.graph import ComputeProblem
 from repro_torch.core.queues import StaticProblem
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, upload
 from repro_torch.kernels.bp_slot.ref import PROBLEM_LEAVES as LEAVES
 
 
@@ -189,8 +189,7 @@ def from_leaves(leaves: Sequence[Dict[str, np.ndarray]], n_nodes: int,
     without a card."""
     dev = resolve_device(device)
     return PaddedProblem(n_nodes=n_nodes, n_comp=n_comp, **{
-        k: torch.as_tensor(np.stack([np.asarray(lv[k]) for lv in leaves]),
-                           device=dev)
+        k: upload(np.stack([np.asarray(lv[k]) for lv in leaves]), dev)
         for k in LEAVES})
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.bp_slot.kernel import slot_step_fused
+from repro_torch.obs import spans
 
 #: Slots one captured CUDA graph advances; a fleet chunk replays it
 #: chunk / gcd(chunk, GRAPH_SLOTS) times.  At the fleet's ≈380 launches a
@@ -44,10 +45,11 @@ class CapturedSlots:
     def capture(self, advance) -> None:
         """Capture ``advance()``, the block's slots on static tensors; a
         failed capture raises."""
-        graph = torch.cuda.CUDAGraph()
-        before = slot_step_fused.captured
-        with torch.cuda.graph(graph):
-            advance()
+        with spans.span("graph.capture"):
+            graph = torch.cuda.CUDAGraph()
+            before = slot_step_fused.captured
+            with torch.cuda.graph(graph):
+                advance()
         self.captured = slot_step_fused.captured - before
         self.graph = graph
         self.n_captures += 1

@@ -58,6 +58,7 @@ from repro_torch.core.queues import (DriftStats, NetState, VERDICT_NAMES,
                                      init_state)
 from repro_torch.device import resolve_device, tree_leaves
 from repro_torch.kernels.bp_slot.ref import kahan_add
+from repro_torch.obs import spans
 from repro_torch.obs.emitter import ChunkEmitter, open_sink
 from repro_torch.sim import workload
 from .batching import PadDims, PaddedProblem, from_leaves, pad_leaves
@@ -395,7 +396,7 @@ class StreamRunner:
     def table_kinds(self, inp: RunInputs) -> np.ndarray:
         """Each sim's arrival-model code: what its Poisson row depends on
         besides its rate."""
-        return inp.akind.cpu().numpy()
+        return _to_host(inp.akind)
 
     def table(self, lam, kinds, device, width: int = 0) -> torch.Tensor:
         """The Poisson tables of sims at rates ``lam`` with arrival models
@@ -568,9 +569,12 @@ class GroupLaunch(CapturedSlots):
                              f"{self.device} got {shape} {inp.codes} on "
                              f"{pp.device}")
         self._kinds = self.runner.table_kinds(inp)
-        lam = inp.lam.cpu().numpy()
-        width = max(inp.cdf.shape[-1], self._table(
-            np.maximum(lam, np.float32(max_rate)), self._kinds).shape[-1])
+        lam = _to_host(inp.lam)
+        width = inp.cdf.shape[-1]
+        if lam.size and np.float32(max_rate) > lam.min():
+            # A later rewrite may offer more than the run's own rates.
+            width = max(width, self._table(
+                np.maximum(lam, np.float32(max_rate)), self._kinds).shape[-1])
         if self.inp is None:
             self.inp = _clone(dataclasses.replace(
                 inp, cdf=_widen(inp.cdf, width)))
@@ -598,6 +602,7 @@ class GroupLaunch(CapturedSlots):
             replays -= 1
         self.replay(replays)
 
+    @spans.traced("fleet.rewrite")
     def rewrite(self, reset, park, lam=None, seed=None) -> None:
         """The per-sim rewrite between chunks (`make_sim_rewriter`)."""
         reset = np.asarray(reset, bool).reshape(-1)
@@ -701,6 +706,15 @@ class FleetResult:
         return [VERDICT_NAMES[int(m["verdict"])] for m in self.metrics]
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host: a blocking read of the run loop, where the host
+    waits on the device (span ``fleet.readback``; its bytes counted)."""
+    with spans.span("fleet.readback"):
+        out = t.cpu().numpy()
+    spans.count("host.readback_bytes", out.nbytes)
+    return out
+
+
 def _policy_group_key(job: FleetJob):
     """The axes that change control flow, hence one batch each."""
     cfg = job.policy_config()
@@ -708,6 +722,7 @@ def _policy_group_key(job: FleetJob):
             cfg.pairing, cfg.threshold, cfg.fixed_node, cfg.wireless)
 
 
+@spans.traced("fleet.run")
 def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
               window: int | None = None, device=None,
               dims: PadDims | None = None,
@@ -752,13 +767,15 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
     dev = resolve_device(device)
     jobs = list(jobs)
     vcfg = resolve_verdict(verdict, early_stop)
-    problem_of: Dict[tuple, ComputeProblem] = {}
-    for job in jobs:
-        k = (job.scenario, job.topo_seed)
-        if k not in problem_of:
-            problem_of[k] = get_scenario(job.scenario).build(job.topo_seed)
-    dims = dims or PadDims.of(list(problem_of.values()))
-    leaves_of = {k: pad_leaves(p, dims) for k, p in problem_of.items()}
+    with spans.span("fleet.build"):
+        problem_of: Dict[tuple, ComputeProblem] = {}
+        for job in jobs:
+            k = (job.scenario, job.topo_seed)
+            if k not in problem_of:
+                problem_of[k] = get_scenario(job.scenario).build(
+                    job.topo_seed)
+        dims = dims or PadDims.of(list(problem_of.values()))
+        leaves_of = {k: pad_leaves(p, dims) for k, p in problem_of.items()}
 
     groups: Dict[tuple, List[int]] = {}
     for i, job in enumerate(jobs):
@@ -790,10 +807,12 @@ def run_fleet(jobs: Sequence[FleetJob], T: int, chunk: int = 1024,
             prog.launch_saved += (len(idxs) * (runner.n_chunks - launched)
                                   * runner.chunk)
             n_compiles += launch.n_compiles
-            out = {k: v.cpu().numpy() for k, v in
-                   runner.finalize(launch.inp, launch.carry).items()}
-            for j, i in enumerate(idxs):
-                prog.metrics[i] = {k: float(v[j]) for k, v in out.items()}
+            with spans.span("fleet.finalize"):
+                out = runner.finalize(launch.inp, launch.carry)
+                host = _to_host(torch.stack(list(out.values())))  # one copy
+                for j, i in enumerate(idxs):
+                    prog.metrics[i] = {k: float(v[j])
+                                       for k, v in zip(out, host)}
             if rt is not None:
                 # Group-boundary marker: a kill between groups resumes at
                 # g + 1 with the finished metrics, never re-running g.
@@ -829,36 +848,40 @@ def _run_fleet_group(g: int, idxs: List[int], jobs, T, chunk, window, vcfg,
     from repro_torch.runtime.resilience import resume_group
     group = [jobs[i] for i in idxs]
     cfg = group[0].policy_config()
-    runner = make_stream_runner(cfg, T, chunk=chunk, window=window,
-                                verdict=vcfg)
-    pp = from_leaves([leaves_of[(j.scenario, j.topo_seed)] for j in group],
-                     dims.n_nodes, dims.n_comp, dev)
-    inp = make_inputs(
-        pp, [j.lam for j in group], [j.eps_b for j in group],
-        [arrival_code(get_scenario(j.scenario).arrival) for j in group],
-        [event_code(get_scenario(j.scenario).events) for j in group],
-        [j.seed for j in group])
+    with spans.span("fleet.build"):
+        runner = make_stream_runner(cfg, T, chunk=chunk, window=window,
+                                    verdict=vcfg)
+        pp = from_leaves([leaves_of[(j.scenario, j.topo_seed)]
+                          for j in group], dims.n_nodes, dims.n_comp, dev)
+        inp = make_inputs(
+            pp, [j.lam for j in group], [j.eps_b for j in group],
+            [arrival_code(get_scenario(j.scenario).arrival) for j in group],
+            [event_code(get_scenario(j.scenario).events) for j in group],
+            [j.seed for j in group])
     launch = launch_for(runner, inp)
-    launch.start(inp, max_rate)
+    with spans.span("fleet.start"):
+        launch.start(inp, max_rate)
     emitter = (ChunkEmitter("fleet", g, len(group), runner, sink)
                if sink is not None else None)
     try:
         launched = first = resume_group(rt, g, launch, runner, emitter, sink,
                                         len(group), "fleet")
         while launched < runner.n_chunks:
-            if early_stop and launched > 0 and bool(
-                    (launch.carry.drift.verdict != VERDICT_UNDECIDED).all()):
+            if early_stop and launched > 0 and bool(_to_host(
+                    (launch.carry.drift.verdict != VERDICT_UNDECIDED).all())):
                 break               # every sim decided: nothing left to run
-            if rt is not None:
-                rt.launch(g, prog.glaunch, launch.step)
-            else:
-                launch.step()
+            with spans.span("fleet.chunk", launch.device):
+                if rt is not None:
+                    rt.launch(g, prog.glaunch, launch.step)
+                else:
+                    launch.step()
             launched += 1
             prog.glaunch += 1
             if emitter is not None:
                 # Snapshot the probe before the next chunk overwrites the
                 # carry in place; the record is assembled off the host loop.
-                emitter.emit(runner.probe(launch.carry))
+                with spans.span("fleet.emit"):
+                    emitter.emit(runner.probe(launch.carry))
             if rt is not None:
                 lane_dead = prog.drop_hosts(rt.dead_hosts(prog.glaunch),
                                             idxs)

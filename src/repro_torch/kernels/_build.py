@@ -41,6 +41,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
+from ..obs import spans
+
 PKG_ROOT = pathlib.Path(__file__).resolve().parents[1]      # src/repro_torch
 BUILD_DIR = PKG_ROOT.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -109,8 +111,9 @@ def build(src: pathlib.Path) -> pathlib.Path:
         os.close(fd)
         cmd = [nvcc(), *flags(src), "-o", tmp, str(src)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+        with spans.span("kernel.build"):
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
@@ -138,9 +141,10 @@ def load(src: pathlib.Path) -> ctypes.CDLL:
     src = pathlib.Path(src)
     lib = _LOADED.get(src)
     if lib is None:
-        path = build(src)
-        with _LOCK:
-            lib = _LOADED.get(src)
-            if lib is None:
-                lib = _LOADED[src] = ctypes.CDLL(str(path))
+        with spans.span("kernel.load"):
+            path = build(src)
+            with _LOCK:
+                lib = _LOADED.get(src)
+                if lib is None:
+                    lib = _LOADED[src] = ctypes.CDLL(str(path))
     return lib

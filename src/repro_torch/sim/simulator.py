@@ -45,6 +45,7 @@ from repro_torch.fleet.batching import (LEAVES, PadDims, PaddedProblem,
                                         pad_problem)
 from repro_torch.fleet.capture import (GRAPH_SLOTS, CapturedSlots,
                                        launch_device)
+from repro_torch.obs import spans
 from . import workload
 
 
@@ -184,24 +185,27 @@ class TraceLaunch(CapturedSlots):
             draws: torch.Tensor | None) -> SimResult:
         """The whole trace: ``arrivals`` [B, T], ``draws`` [B, T, NC] when
         the noise kind is "draws"."""
-        self._load(pp, seed)
+        with spans.span("trace.load"):
+            self._load(pp, seed)
         T = arrivals.shape[1]
         traces = torch.empty((5, self.batch, T), dtype=torch.float32,
                              device=self.device)
         for s in range(0, T, self.block):
-            n = min(self.block, T - s)
-            self.arr[:, :n].copy_(arrivals[:, s:s + n])
-            if self.reg is not None:
-                self.reg[:, :n].copy_(draws[:, s:s + n])
-            if n == self.block and self.graph is not None:
-                self.replay()
-            else:
-                self._block(n)
-                if n == self.block:
-                    self.capture(lambda: self._block(self.block))
-            traces[:, :, s:s + n].copy_(self.trace[:, :, :n])
-        state = NetState(*(v.clone() for v in tree_leaves(self.state)))
-        return _result(state, traces)
+            with spans.span("trace.block", self.device):
+                n = min(self.block, T - s)
+                self.arr[:, :n].copy_(arrivals[:, s:s + n])
+                if self.reg is not None:
+                    self.reg[:, :n].copy_(draws[:, s:s + n])
+                if n == self.block and self.graph is not None:
+                    self.replay()
+                else:
+                    self._block(n)
+                    if n == self.block:
+                        self.capture(lambda: self._block(self.block))
+                traces[:, :, s:s + n].copy_(self.trace[:, :, :n])
+        with spans.span("trace.result"):
+            state = NetState(*(v.clone() for v in tree_leaves(self.state)))
+            return _result(state, traces)
 
 
 @functools.lru_cache(maxsize=16)
@@ -312,11 +316,13 @@ def simulate(problem: ComputeProblem, cfg: PolicyConfig, lam: float, T: int,
     return SimResult(res.final_state, *(x[0] for x in res[1:]))
 
 
+@spans.traced("trace.sweep")
 def sweep_rates(problem: ComputeProblem, cfg: PolicyConfig, lams, T: int,
                 seed: int = 0, device=None) -> SimResult:
     """The full simulation at every rate of ``lams`` as one batch
     (Fig. 5b); traces are [L, T]."""
-    pp = _padded(problem, device)
-    lams = [float(x) for x in lams]
-    arrivals = workload.poisson_arrivals(lams, T, seed, pp.device)
+    with spans.span("trace.arrivals"):
+        pp = _padded(problem, device)
+        lams = [float(x) for x in lams]
+        arrivals = workload.poisson_arrivals(lams, T, seed, pp.device)
     return make_trace_runner(pp, cfg)(arrivals, seed)

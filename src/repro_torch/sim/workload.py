@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from scipy import stats
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, upload
 
 # Draw sites: one independent stream each.
 SITE_ARRIVAL = 1          # Poisson / Bernoulli-batch arrival uniforms
@@ -128,7 +128,18 @@ POISSON_TAIL = 1e-12
 def poisson_width(rate: float) -> int:
     """Columns of one Poisson table row at ``rate``: the smallest count
     that leaves less than `POISSON_TAIL` mass beyond the row."""
-    return int(stats.poisson.isf(POISSON_TAIL, rate)) + 2 if rate > 0 else 1
+    return int(poisson_widths([rate])[0])
+
+
+def poisson_widths(rates) -> np.ndarray:
+    """`poisson_width` of each rate, in one call of the distribution's
+    inverse survival function (elementwise, so each width is the one a
+    rate alone gets)."""
+    rates = np.asarray(rates, np.float64).reshape(-1)
+    own = np.ones(rates.shape, np.int64)
+    pos = rates > 0
+    own[pos] = stats.poisson.isf(POISSON_TAIL, rates[pos]).astype(np.int64) + 2
+    return own
 
 
 def poisson_table(rates, device=None, width: int = 0) -> torch.Tensor:
@@ -139,12 +150,12 @@ def poisson_table(rates, device=None, width: int = 0) -> torch.Tensor:
     from it, depends on its own rate only, never on the batch it is built
     in.  K is the widest row's width, or ``width`` when that is larger."""
     rates = np.asarray(rates, np.float64).reshape(-1)
-    own = np.array([poisson_width(r) for r in rates], np.int64)
+    own = poisson_widths(rates)
     K = max(int(own.max()) if rates.size else 1, int(width))
     cols = np.arange(K)[None, :]
     cdf = stats.poisson.cdf(cols, rates[:, None])
     cdf[(cols >= own[:, None]) | (rates[:, None] <= 0)] = 1.0
-    return torch.as_tensor(cdf, dtype=torch.float64, device=device)
+    return upload(cdf, device, torch.float64)
 
 
 def poisson_from_uniform(u: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
