@@ -26,7 +26,12 @@ on failure:
      those shapes in float32 and bfloat16 and at the 32k prefill's gate
      (T=32,768, bfloat16), with and without backpressure, each case
      launched twice back to back (the workspace reset), timed at the
-     decode and the prefill shape;
+     decode and the prefill shape; the counter-based noise kernel
+     (`counter_hash.cu`) in every output form and site at the fleet
+     cell's widest draw (504 x 24), the trace simulator's regulator
+     (9 x 4) and the fleet path's own draws below (1,512 x 1, 51 and 4),
+     bit-identical to the plain int64 chain, device times beside the
+     chain's and the bound at each;
   3. the fleet path at full width: `run_fleet` over 1,512 pi3_reg sims (8
      registry families x topo_seeds 0-20 x 3 rates x 3 seeds, padded to the
      atlas hull (16, 51, 4)), T=4096, chunk=512, early stop, each chunk
@@ -34,7 +39,8 @@ on failure:
      the exact LP bound; the fused slot-step kernel (`bp_slot_step.cu`)
      launches once per slot advanced (eager launches, the 64 slots before
      the capture, plus graph replays x the launches the graph captured),
-     B1 and B2 never; the graphed run, and a second graphed run, against
+     B1 and B2 never, and the noise kernel once per draw site a slot uses
+     per slot advanced; the graphed run, and a second graphed run, against
      the eager `chunk_step` loop on the same sims: every metric and verdict
      bit-identical, ms per batched slot of each; a profiler trace of one
      replay, whose bp_slot_step kernels must be the 64 slots it holds,
@@ -889,6 +895,69 @@ def phase_kernels(dev, peaks):
     return rows
 
 
+#: Shapes of the noise kernel's row, with the form each site there takes
+#: and the slot counter's dtype: the fleet cell's widest draw (504 lanes'
+#: link chain, E=24), the trace simulator's regulator (B=9, N_C=4), and
+#: phase_main's draws at B_MAIN (arrivals [B, 1], link chain [B, E_MAIN],
+#: comp chain and regulator [B, NC_MAIN]).  Every form and site is checked
+#: at each shape; the timing takes the form named here.
+HASH_SHAPES = {"": (504, 24, "uniform", "int32"),
+               "regulator_": (9, 4, "bernoulli", "int64"),
+               "main_arrivals_": (B_MAIN, 1, "uniform64", "int32"),
+               "main_": (B_MAIN, E_MAIN, "uniform", "int32"),
+               "main_chain_": (B_MAIN, NC_MAIN, "uniform", "int32"),
+               "main_regulator_": (B_MAIN, NC_MAIN, "bernoulli", "int32")}
+
+
+def hash_inputs(B: int, t_dtype: str, dev):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(B)
+    seed = torch.as_tensor(rng.integers(-2 ** 63, 2 ** 63 - 1, B,
+                                        dtype=np.int64), device=dev)
+    t = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, B),
+                        dtype=getattr(torch, t_dtype), device=dev)
+    eps = torch.as_tensor(rng.random(B, dtype=np.float32), device=dev)
+    return seed, t, eps
+
+
+def phase_counter_hash(dev, peaks):
+    """The noise kernel against the plain int64 chain on the card, every
+    form and site at each HASH_SHAPES shape, bit for bit; device times of
+    one launch and of the chain beside the bound by bytes (it reads seed,
+    t and eps and writes the draw once)."""
+    from repro_torch.kernels.counter_hash import kernel as CH
+    from repro_torch.kernels.counter_hash import ref as CR
+    row = dict(name="counter_hash", route="cuda",
+               source="src/repro_torch/kernels/counter_hash/csrc/"
+                      "counter_hash.cu",
+               replaces="none (the JAX package draws with threefry inside "
+                        "XLA)", max_abs_err=0.0, library_ms=None)
+    for key, (B, n, form, t_dtype) in HASH_SHAPES.items():
+        seed, t, eps = hash_inputs(B, t_dtype, dev)
+        for f in CR.FORMS:
+            for site in range(1, 8):
+                check(bits_equal(CH.counter_hash(seed, t, site, n, f, eps),
+                                 CR.counter_hash_ref(seed, t, site, n, f,
+                                                     eps)),
+                      f"counter_hash differs from its plain chain at "
+                      f"({B}, {n}), {f}, site {site}, t {t_dtype}")
+        nbytes = B * (8 + t.element_size() + 4 * (form == "bernoulli")) + \
+            B * n * CH.DTYPES[form].itemsize
+        row[key + "ms"] = device_ms(
+            lambda: CH.counter_hash(seed, t, 4, n, form, eps),
+            match="counter_hash_kernel")
+        row[key + "plain_ms"] = device_ms(
+            lambda: CR.counter_hash_ref(seed, t, 4, n, form, eps))
+        row[key + "bound_ms"], row["bound_by"] = bound_of(nbytes, 0, peaks)
+        log(f"kernel counter_hash at ({B}, {n}), {form}, t {t_dtype}: "
+            f"{row[key + 'ms']:.6f} ms on the card, the plain chain "
+            f"{row[key + 'plain_ms']:.6f} ms, bound "
+            f"{row[key + 'bound_ms'] * 1e3:.4f} us by bytes ({nbytes} B); "
+            f"bit-identical in every form and site")
+    return row
+
+
 def topk_inputs(gen, T: int, E: int, ties: bool, bias: str, dev):
     """Gate logits [T, E] and bias [E]: normal logits, or integer-valued
     ones in [-2, 2] (exact ties in every row, and one all-equal row); bias
@@ -1133,6 +1202,22 @@ def reset_fused_counts(K) -> None:
     K.slot_step_fused.replayed = 0
 
 
+def draw_sites(jobs) -> int:
+    """Noise draws one batched slot of ``jobs`` (one policy group) makes,
+    each one launch of the noise kernel: the arrival uniforms unless every
+    lane's arrivals are constant, the ON-OFF phase, the link and the comp
+    chains where an event model reads them, the regulator's bits where the
+    policy is regulated."""
+    from repro_torch.fleet.scenarios import (COMP_NOISE_EVENTS,
+                                             LINK_NOISE_EVENTS, get_scenario)
+    arrivals = {get_scenario(j.scenario).arrival for j in jobs}
+    events = {get_scenario(j.scenario).events for j in jobs}
+    return (bool(arrivals - {"constant"}) + ("markov_onoff" in arrivals)
+            + bool(events & set(LINK_NOISE_EVENTS))
+            + bool(events & set(COMP_NOISE_EVENTS))
+            + bool(jobs[0].policy_config().use_regulator))
+
+
 def fused_launches(K) -> dict:
     """The fused slot step's launches since `reset_fused_counts`: eager
     (outside a graph; the first `GRAPH_SLOTS` slots before each capture),
@@ -1162,6 +1247,7 @@ def phase_main(dev):
     import torch
     from repro_torch.fleet import PadDims, run_fleet
     from repro_torch.kernels.bp_slot import kernel as K
+    from repro_torch.kernels.counter_hash.kernel import counter_hash
     t0 = time.perf_counter()
     jobs, bounds = main_jobs()
     log(f"main: {len(jobs)} jobs, exact LP bounds in "
@@ -1171,6 +1257,7 @@ def phase_main(dev):
     K.slot_route_decide.launches = 0
     K.comp_balance_decide.launches = 0
     reset_fused_counts(K)
+    counter_hash.launches = counter_hash.replayed = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_fleet(jobs, T=T_MAIN, chunk=CHUNK_MAIN, device=dev, dims=dims,
@@ -1180,7 +1267,14 @@ def phase_main(dev):
     fused = fused_launches(K)
     launches = {"bp_slot_step": fused["launched"],
                 "slot_route_decide": K.slot_route_decide.launches,
-                "comp_balance_decide": K.comp_balance_decide.launches}
+                "comp_balance_decide": K.comp_balance_decide.launches,
+                "counter_hash": counter_hash.launches + counter_hash.replayed}
+    sites = draw_sites(jobs)
+    check(launches["counter_hash"] == sites * res.slot_steps and
+          counter_hash.replayed > 0,
+          f"noise-kernel launches {counter_hash.launches} eager + "
+          f"{counter_hash.replayed} replayed != {sites} draw sites x "
+          f"{res.slot_steps} slots advanced, or none from the graph")
     check(res.n_programs == 1 and res.n_step_compiles == 1,
           f"one policy group and one capture expected: {res.n_programs} "
           f"groups, {res.n_step_compiles} captures")
@@ -1290,10 +1384,11 @@ def profile_graph(launch, what: str):
         log(f"profile: a traced replay of the {what} graph kept "
             f"{len(fused)} of its {block} bp_slot_step records; tracing "
             f"again")
-    check(len(fused) == block == launch.captured,
+    captured = launch.captured["slot_step_fused"]
+    check(len(fused) == block == captured,
           f"profile: one replay of the {what} graph ran {len(fused)} "
           f"bp_slot_step kernels; the graph holds {block} slots and "
-          f"captured {launch.captured}")
+          f"captured {captured}")
     per_slot = len(dev_events) / block
     dev_us = sum(e.device_time for e in dev_events) / block
     fused_us = sum(e.device_time for e in fused) / block
@@ -2614,8 +2709,9 @@ def graphed_against_eager(dev, problem, cfg, lams, T: int, seed: int,
         walls.append(time.perf_counter() - t0)
         counts.append(fused_launches(K))
     launch = run.launch
-    check(launch.n_captures == 1 and launch.captured == launch.block,
-          f"{what}: {launch.n_captures} captures of {launch.captured} "
+    captured = launch.captured["slot_step_fused"]
+    check(launch.n_captures == 1 and captured == launch.block,
+          f"{what}: {launch.n_captures} captures of {captured} "
           f"fused launches; one of {launch.block} expected")
     for c in counts:
         check(c["launched"] == T, f"{what}: {c} fused launches for {T} "
@@ -2633,7 +2729,7 @@ def graphed_against_eager(dev, problem, cfg, lams, T: int, seed: int,
           "graphed_first": walls[0] / T * 1e3}
     log(f"paper figures: {what}, B={len(lams)}, T={T}: the graphed "
         f"runner (one capture, {launch.replays} replays over both runs, "
-        f"{launch.captured} fused launches each) bit-identical to the "
+        f"{captured} fused launches each) bit-identical to the "
         f"eager loop in every trace and the final state; fused launches "
         f"per run {[c['launched'] for c in counts]} = slots (eager + "
         f"replayed: {[(c['eager'], c['replayed']) for c in counts]}), B1/B2 "
@@ -5955,6 +6051,7 @@ def main() -> int:
     phase_build_report(_build)
 
     rows = phase_kernels(dev, peaks)
+    rows["counter_hash"] = phase_counter_hash(dev, peaks)
     rows["bp_topk_route"] = phase_topk_route(dev, peaks)
     rows["bp_route_decide"] = phase_route(dev, peaks)
     rows["flash_attention"] = phase_flash(dev, peaks)
@@ -6069,6 +6166,9 @@ def main() -> int:
         f"{paper_launches} (phase_paper_figures: simulate and sweep_rates "
         f"graphed and eager, the three figure suites); these two are the "
         f"launches counted; besides, " + slot_path)
+    rows["counter_hash"]["path"] = (
+        "run_fleet, graphed (phase_main): one launch per draw site per "
+        "batched slot, eager and replayed; every CUDA draw of the port")
     launches["bp_route_decide"] = rows["bp_route_decide"]["launches"]
     launches["bp_topk"] = rows["bp_topk"]["launches"]
     for k, r in rows.items():
@@ -6088,9 +6188,10 @@ def main() -> int:
     # plain version's time there), and the sm90 kernel's time, bound and
     # SDPA's at gemma3's global and windowed layers (`gemma_`) and at
     # zamba's head dim 80, the sm90 kernel at its prefill and the
-    # CUDA-core kernel at its float32 training step (`zamba_`);
-    # the bp_slot, bp_topk and flash rows name the paths that launched
-    # them.
+    # CUDA-core kernel at its float32 training step (`zamba_`); the noise
+    # kernel's time, plain time and bound at the trace simulator's
+    # regulator draw (`regulator_`); the bp_slot, bp_topk, flash and noise
+    # rows name the paths that launched them.
     shape = ("plain_S", "ms_at_plain_S", "kernel", "simt_f32_ms",
              "simt_f32_bound_ms", "simt_f32_launches", "library_f32_ms",
              "simt_f32_train_ms", "plain_f32_train_ms",
@@ -6101,7 +6202,8 @@ def main() -> int:
              "zamba_prefill_ms", "zamba_prefill_bound_ms",
              "zamba_prefill_library_ms", "zamba_train_f32_ms",
              "zamba_train_f32_bound_ms", "zamba_train_plain_f32_ms",
-             "zamba_train_library_f32_ms", "path")
+             "zamba_train_library_f32_ms", "regulator_ms",
+             "regulator_plain_ms", "regulator_bound_ms", "path")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}
     for r in table["kernels"]:

@@ -5,19 +5,23 @@ The capture and the launch accounting shared by the fleet's `GroupLaunch`
 (`repro_torch.sim.simulator`).  A slot step launched while a stream is
 captured counts in ``slot_step_fused.captured``, not in ``.launches``; a
 replay of the graph launches those kernels again and adds them to
-``slot_step_fused.replayed``.
+``slot_step_fused.replayed``.  The noise draws' kernel counts alike, in
+``counter_hash.captured`` and ``counter_hash.replayed``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.bp_slot.kernel import slot_step_fused
+from repro_torch.kernels.counter_hash.kernel import counter_hash
 from repro_torch.obs import spans
 
 #: Slots one captured CUDA graph advances; a fleet chunk replays it
-#: chunk / gcd(chunk, GRAPH_SLOTS) times.  At the fleet's ≈380 launches a
-#: slot, a graph of 64 slots holds about 24,000 nodes.
+#: chunk / gcd(chunk, GRAPH_SLOTS) times.  At the fleet's ≈165 kernels a
+#: batched slot, a graph of 64 slots holds about 10,500 nodes.
 GRAPH_SLOTS = 64
+#: The kernel wrappers whose launches a capture counts and a replay adds.
+COUNTED = (slot_step_fused, counter_hash)
 
 
 def launch_device(device) -> torch.device:
@@ -31,14 +35,14 @@ def launch_device(device) -> torch.device:
 
 class CapturedSlots:
     """One captured block of ``block`` slots: ``graph`` (None until
-    `capture`, or after a launch drops it), ``captured`` the fused
-    slot-step launches it holds, ``n_captures`` the captures made and
-    ``replays`` the replays."""
+    `capture`, or after a launch drops it), ``captured`` the launches it
+    holds of each `COUNTED` wrapper, by its name, ``n_captures`` the
+    captures made and ``replays`` the replays."""
 
     def __init__(self, block: int):
         self.block = block
         self.graph = None
-        self.captured = 0
+        self.captured = {f.__name__: 0 for f in COUNTED}
         self.n_captures = 0
         self.replays = 0
 
@@ -47,10 +51,11 @@ class CapturedSlots:
         failed capture raises."""
         with spans.span("graph.capture"):
             graph = torch.cuda.CUDAGraph()
-            before = slot_step_fused.captured
+            before = [f.captured for f in COUNTED]
             with torch.cuda.graph(graph):
                 advance()
-        self.captured = slot_step_fused.captured - before
+        self.captured = {f.__name__: f.captured - b
+                         for f, b in zip(COUNTED, before)}
         self.graph = graph
         self.n_captures += 1
 
@@ -59,4 +64,5 @@ class CapturedSlots:
         for _ in range(n):
             self.graph.replay()
         self.replays += n
-        slot_step_fused.replayed += n * self.captured
+        for f in COUNTED:
+            f.replayed += n * self.captured[f.__name__]

@@ -9,9 +9,9 @@ Each `csrc/*.cu` file becomes one shared library with a plain C interface
 where ``<flags>`` are the source's own (`SOURCE_FLAGS`, by file name):
 
   * ``bp_slot.cu``, ``bp_slot_step.cu``, ``bp_topk.cu``,
-    ``bp_topk_route.cu``, ``bp_route.cu``: ``-fmad=false``, and no
-    ``--use_fast_math``.  Both are part of these kernels' bit-exactness
-    contract: their plain versions spell every
+    ``bp_topk_route.cu``, ``bp_route.cu``, ``counter_hash.cu``:
+    ``-fmad=false``, and no ``--use_fast_math``.  Both are part of these
+    kernels' bit-exactness contract: their plain versions spell every
     rounding, and a contracted multiply-add would round once where they
     round twice (see the sources).
   * ``flash_attention.cu``, ``flash_attention_sm90.cu``: none but
@@ -56,6 +56,7 @@ SOURCE_FLAGS = {
     "bp_topk.cu": ("-fmad=false",),
     "bp_topk_route.cu": ("-fmad=false",),
     "bp_route.cu": ("-fmad=false",),
+    "counter_hash.cu": ("-fmad=false",),
     "flash_attention.cu": ("-Xptxas", "-v"),
     "flash_attention_sm90.cu": ("-Xptxas", "-v"),
 }

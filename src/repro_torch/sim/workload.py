@@ -10,7 +10,10 @@ integer hash (SplitMix64 on int64 tensors) of
 which gives three properties the fleet engine relies on: a sim's noise
 depends only on its own seed and slot, never on its lane or its batch; a
 frozen sim (whose slot counter stops) keeps its stream pinned; and the CPU
-and the GPU give the same draws bit for bit.
+and the GPU give the same draws bit for bit.  Each draw function below is
+one call of `repro_torch.kernels.counter_hash`: on CUDA tensors one launch
+of its kernel per [B, n] draw, on CPU tensors the plain int64 chain
+(`mix64`, `random_bits`, defined there and re-exported here).
 
 The arrival laws of the reference are here under its names
 (`poisson_arrivals`, `bernoulli_batch_arrivals`, `constant_arrivals`),
@@ -33,6 +36,9 @@ import torch
 from scipy import stats
 
 from repro_torch.device import resolve_device, upload
+from repro_torch.kernels.counter_hash.kernel import counter_hash
+from repro_torch.kernels.counter_hash.ref import (  # noqa: F401
+    _srl, mix64, random_bits)
 
 # Draw sites: one independent stream each.
 SITE_ARRIVAL = 1          # Poisson / Bernoulli-batch arrival uniforms
@@ -44,57 +50,23 @@ SITE_CLASS_ARRIVAL = 6    # serving traces: each query class's arrival draw
 SITE_CLASS_PHASE = 7      # serving traces: each class's ON-OFF phase flip
 
 
-def _signed(x: int) -> int:
-    """A 64-bit constant as the int64 value with the same bits."""
-    return x - (1 << 64) if x >= (1 << 63) else x
-
-
-_GAMMA = _signed(0x9E3779B97F4A7C15)
-_M1 = _signed(0xBF58476D1CE4E5B9)
-_M2 = _signed(0x94D049BB133111EB)
-
-
-def _srl(z: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift of int64 bits (torch's >> is arithmetic)."""
-    return (z >> s) & ((1 << (64 - s)) - 1)
-
-
-def mix64(z: torch.Tensor) -> torch.Tensor:
-    """SplitMix64's finalizer on int64 tensors (wrapping arithmetic)."""
-    z = (z ^ _srl(z, 30)) * _M1
-    z = (z ^ _srl(z, 27)) * _M2
-    return z ^ _srl(z, 31)
-
-
-def random_bits(seed: torch.Tensor, t: torch.Tensor, site: int,
-                n: int) -> torch.Tensor:
-    """[B, n] int64 hash of (seed[b], t[b], site, element index)."""
-    base = mix64(seed.long() * _GAMMA + site)
-    base = mix64(base + (t.long() + 1) * _GAMMA)
-    idx = torch.arange(1, n + 1, dtype=torch.long, device=base.device)
-    return mix64(base[:, None] + idx[None, :] * _GAMMA)
-
-
 def uniform(seed: torch.Tensor, t: torch.Tensor, site: int,
             n: int) -> torch.Tensor:
     """[B, n] float32 uniforms in [0, 1) with 24 random bits (exact)."""
-    bits = _srl(random_bits(seed, t, site, n), 40)
-    return bits.to(torch.float32) * (2.0 ** -24)
+    return counter_hash(seed, t, site, n, "uniform")
 
 
 def uniform64(seed: torch.Tensor, t: torch.Tensor, site: int,
               n: int) -> torch.Tensor:
     """[B, n] float64 uniforms in [0, 1) with 53 random bits (exact)."""
-    bits = _srl(random_bits(seed, t, site, n), 11)
-    return bits.to(torch.float64) * (2.0 ** -53)
+    return counter_hash(seed, t, site, n, "uniform64")
 
 
 def regulator_bits(seed: torch.Tensor, t: torch.Tensor, eps_b: torch.Tensor,
                    n: int) -> torch.Tensor:
     """[B, n] float32 Bernoulli(eps_b[b]) outcomes of the regulator at each
-    sim's slot t[b] (0.0 / 1.0)."""
-    u = uniform(seed, t, SITE_REGULATOR, n)
-    return (u < eps_b[:, None]).to(torch.float32)
+    sim's slot t[b] (0.0 / 1.0): its `uniform` draw below eps_b[b]."""
+    return counter_hash(seed, t, SITE_REGULATOR, n, "bernoulli", eps_b)
 
 
 def seed_of(seed) -> int:

@@ -1,9 +1,10 @@
 """The port's per-source nvcc flags (`repro_torch.kernels._build`).
 
 No nvcc is needed: these tests read the flag table and the library names
-it hashes.  The bit-exactness contract of B1-B4, of the fused slot step
-and of the fused router gate rests on ``-fmad=false`` and on the absence of fast math; flash attention has no such contract and must
-not carry the flag.
+it hashes.  The bit-exactness contract of B1-B4, of the fused slot step,
+of the fused router gate and of the counter-based noise kernel rests on
+``-fmad=false`` and on the absence of fast math; flash attention has no
+such contract and must not carry the flag.
 """
 import pathlib
 
@@ -14,7 +15,7 @@ pytest.importorskip("torch")
 from repro_torch.kernels import _build  # noqa: E402
 
 EXACT = ("bp_slot.cu", "bp_slot_step.cu", "bp_topk.cu",
-         "bp_topk_route.cu", "bp_route.cu")
+         "bp_topk_route.cu", "bp_route.cu", "counter_hash.cu")
 FLASH = ("flash_attention.cu", "flash_attention_sm90.cu")
 
 
