@@ -155,6 +155,11 @@ class FleetEntry:
             pad=pad, eps_b=cfg["eps_b"], T=cfg["T"], chunk=cfg["chunk"],
             regulated=reference.regulated(cfg["policy"]), carry=carry)
 
+    def control(self, idx: list) -> dict:
+        """The cell's control: the reference with its carry held in
+        bfloat16 between slots, its arithmetic in float32."""
+        return self.reference(idx, "bfloat16")
+
     def compare(self, prog: dict, ref: dict) -> dict:
         """`verdicts_differ`: sampled lanes whose streaming verdict is not
         the reference's.  `lane_gap`: over the other lanes, the largest

@@ -78,6 +78,11 @@ class TraceEntry:
             out.update({f"{key}.{k}": v for k, v in ref.items()})
         return out
 
+    def control(self, idx: list) -> dict:
+        """The cell's control: the reference with its carry held in
+        bfloat16 between slots, its arithmetic in float32."""
+        return self.reference(idx, "bfloat16")
+
     def compare(self, prog: dict, ref: dict) -> dict:
         """`trace_gap`: the largest |program - reference| / max(|reference|,
         1) of any float trace at any slot and rate.  `n_star_differ`: the

@@ -9,7 +9,7 @@ Everything that belongs to a cell is found by name:
   * `portbench/configs/<config>.json` (BENCHMARK.json's `file`) and
     `portbench/traffic/<traffic>.json`;
   * `portbench/entries/<entry>.py` (a class with `setup`, `run`,
-    `lane_slots`, `sample`, `answers`, `reference`, `compare`,
+    `lane_slots`, `sample`, `answers`, `reference`, `control`, `compare`,
     `kernel_launches`) and `portbench/metrics/<metric>.py`
     (a `read(reading)` function).
 

@@ -17,8 +17,7 @@ def test_the_control_is_not_correct(tiny, name):
     entry = harness.make_entry(tiny(name, SIZES[name]), 3, "cpu")
     idx = entry.sample()
     ref = entry.reference(idx)
-    checks, failed = harness.judge(entry, [entry.reference(idx, "bfloat16")],
-                                   ref)
+    checks, failed = harness.judge(entry, [entry.control(idx)], ref)
     assert failed == 1, checks
     checks, failed = harness.judge(entry, [ref], ref)
     assert failed == 0, checks
