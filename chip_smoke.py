@@ -343,12 +343,10 @@ PREFILL_B, PREFILL_S, PREFILL_WARM_S = 1, 32_768, 1024
 #: B = 8 rows of S = 512 tokens, granite's 16 heads over 8, D = 64.
 FLASH_TRAIN_SHAPE = (8, 16, 8, 512, 64)
 FLASH_PLAIN_S = 4096            # the plain version's timing shape
-#: Query-row windows (first row, rows) held to a plain computation at the
-#: prefill shape: the first 64-query block, one across the edge of the
-#: first two, a ragged start, the middle across a block edge, the last 256
-#: rows; and FLASH_RANDOM_WINDOWS of 64 rows at random starts.
-FLASH_WINDOWS = ((0, 64), (32, 64), (4001, 64), (PREFILL_S // 2 - 32, 64),
-                 (PREFILL_S - 256, 256))
+#: Query-row windows (first row, rows) held to a plain computation at a
+#: prefill of S tokens: the first 64-query block, one across the edge of
+#: the first two, a ragged start, the middle across a block edge, the last
+#: 256 rows; and FLASH_RANDOM_WINDOWS of 64 rows at random starts.
 FLASH_RANDOM_WINDOWS = 12
 #: (atol, rtol) of a bf16 output against float32 math: rounding to bf16
 #: moves a value by at most 2^-8 of itself; 1e-5 covers float32 summation
@@ -408,6 +406,18 @@ FLASH_FAMILY_CASES = (("gemma3 local", 1, 32, 16, 4096, 4096, 128, True, 1024),
 #: (the CUDA-core kernel, against the plain version).
 ZAMBA_FLASH_PREFILL = (1, 32, 32, 32_768, 80)
 ZAMBA_FLASH_TRAIN = (8, 32, 32, 512, 80)
+#: Moonlight-16B-A3B's prefill (`configs.moonlight_16b_a3b`, the cell
+#: moonlight-16b-a3b.prefill_8k): B = 8 prompts of S = 8,192 tokens.  Its
+#: latent attention through the sm90 kernel's (192, 128) instance at
+#: (B, H, S, q/k head dim, v head dim), 16 heads each with its own k and v,
+#: causal, scale 1/sqrt(192); the plain version timed beside the kernel on
+#: the same inputs cut to MLA_PLAIN_S (its scores do not fit at S); the
+#: gate's sigmoid mode at its prefill shape (T = B S, E, k), bfloat16.
+MLA_ARCH = "moonlight-16b-a3b"
+MLA_PREFILL_B, MLA_PREFILL_S = 8, 8192
+MLA_FLASH_SHAPE = (MLA_PREFILL_B, 16, MLA_PREFILL_S, 192, 128)
+MLA_PLAIN_S = 4096
+MLA_ROUTE_SHAPE = (MLA_PREFILL_B * MLA_PREFILL_S, 64, 6)
 #: gemma3's attention at the prefill length, timed beside its bound and
 #: SDPA: (B, H, KH, S, D), causal, its global layer and its windowed one.
 GEMMA_FLASH_SHAPE, GEMMA_WINDOW = (1, 32, 16, 32_768, 128), 1024
@@ -1046,16 +1056,21 @@ def phase_topk(dev, peaks):
     return main_row
 
 
-def route_bound(T: int, E: int, k: int, itemsize: int, peaks):
+def route_bound(T: int, E: int, k: int, itemsize: int, peaks,
+                score: str = "softmax"):
     """(bytes, operations, bound ms, bound by) of one bp_topk_route call:
     the logits, H and steps read once; idx (int64), w, counts, H_new and
     steps written once.  Operations per entry: max, subtract, exp, add,
-    divide, bias subtract and its divide, and one compare per level of the
-    selection network (log2 E of them); per pick: an add and a divide; per
-    expert: the H update's add, subtract and max."""
+    divide (the sigmoid mode: exp, add, reciprocal), bias subtract and its
+    divide, and one compare per level of the selection network (log2 E of
+    them); per pick: an add and a divide (the sigmoid mode: and the routed
+    scale's multiply); per expert: the H update's add, subtract and
+    max."""
     nbytes = itemsize * T * E + 4 * E + 4 + (8 + itemsize) * T * k + \
         (4 + 4) * E + 4
-    nops = T * ((7 + max(1, math.ceil(math.log2(E)))) * E + 2 * k) + 3 * E
+    per_entry, per_pick = (7, 2) if score == "softmax" else (5, 3)
+    nops = T * ((per_entry + max(1, math.ceil(math.log2(E)))) * E +
+                per_pick * k) + 3 * E
     return (nbytes, nops) + bound_of(nbytes, nops, peaks)
 
 
@@ -1069,7 +1084,8 @@ def phase_topk_route(dev, peaks):
     workspace zero).  Device times at the decode step's shape (float32,
     the serve path's) and at the bfloat16 shapes beside their bounds (the
     last two straddle the kernel's switch to one thread per row); the row
-    reported is the decode step's."""
+    reported is the decode step's, with the sigmoid mode's keys
+    (`topk_route_sigmoid`)."""
     import torch
     from repro_torch.kernels.bp_topk import kernel as K
     from repro_torch.kernels.bp_topk.ref import bp_topk_route_ref
@@ -1141,7 +1157,64 @@ def phase_topk_route(dev, peaks):
         rows.append(row)
     log(f"bp_topk_route: {n} launches bit-identical to the plain version "
         f"({len(cases)} shapes x dtypes, 3 input kinds, twice each)")
+    rows[0].update(topk_route_sigmoid(gen, dev, peaks))
     return rows[0]
+
+
+def topk_route_sigmoid(gen, dev, peaks):
+    """bp_topk_route's sigmoid mode at Moonlight's prefill gate
+    (MLA_ROUTE_SHAPE, bfloat16 logits, the configuration's routed scale)
+    against its plain version (`ref.bp_topk_route_ref` in the sigmoid mode,
+    whose picks and weights are `ref.bp_topk_sigmoid_ref`'s), bit for bit
+    in idx, w, counts, H_new and steps: random and tie-heavy logits, with
+    and without backpressure, non-zero H, each launched twice back to
+    back; then its device ms beside the plain version's and the bound.
+    Returns the row's `sigmoid_*` keys."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bp_topk import kernel as K
+    from repro_torch.kernels.bp_topk.ref import bp_topk_route_ref
+    T, E, k = MLA_ROUTE_SHAPE
+    scale = get_config(MLA_ARCH).routed_scale
+    n = 0
+    for ties, bp in ((False, True), (True, True), (True, False)):
+        s, _ = topk_inputs(gen, T, E, ties, "zero", dev)
+        s = s.to(torch.bfloat16)
+        H = (torch.randint(0, 6, (E,), generator=gen).float() * 0.5).to(dev)
+        steps = torch.tensor(7, dtype=torch.int32, device=dev)
+        cap = T * k / E
+        want = bp_topk_route_ref(s, H, steps, cap, k, bp, "sigmoid", scale)
+        for _ in range(2):
+            got = K.bp_topk_route(s, H, steps, cap, k, bp, score="sigmoid",
+                                  scale=scale)
+            torch.cuda.synchronize()
+            check(all(a.dtype == b.dtype and bits_equal(a, b)
+                      for a, b in zip(got, want)),
+                  f"bp_topk_route (sigmoid) differs from its plain version "
+                  f"at T={T}, E={E}, k={k}, bf16, ties={ties}, "
+                  f"backpressure={bp}: {int((got[0] != want[0]).sum())} "
+                  f"indices, counts {int((got[2] != want[2]).sum())}")
+            n += 1
+        check(float(got[2].sum()) == T * k, "counts must sum to T k")
+        if not ties:
+            timed = (s, H, steps, cap)
+    s, H, steps, cap = timed
+    nbytes, nops, b_ms, by = route_bound(T, E, k, s.element_size(), peaks,
+                                         "sigmoid")
+    ms = device_ms(lambda: K.bp_topk_route(s, H, steps, cap, k, True,
+                                           score="sigmoid", scale=scale),
+                   match="bp_topk_route_")
+    plain = device_ms(lambda: bp_topk_route_ref(s, H, steps, cap, k, True,
+                                                "sigmoid", scale))
+    log(f"kernel bp_topk_route (sigmoid mode, routed scale {scale}) at "
+        f"Moonlight's prefill gate T={T}, E={E}, k={k}, bf16: {n} launches "
+        f"bit-identical to the plain version (3 input kinds, twice each); "
+        f"{ms:.6f} ms on the card (sigmoid_ms), plain {plain:.6f} ms on the "
+        f"card (sigmoid_plain_ms), bound {b_ms * 1e3:.6f} us by {by} "
+        f"({nbytes} B, {nops} ops; sigmoid_bound_ms), "
+        f"{ms / b_ms:.2f}x the bound")
+    return {"sigmoid_ms": ms, "sigmoid_plain_ms": plain,
+            "sigmoid_bound_ms": b_ms}
 
 
 def route_activities(cfg, p, x, H, calls: int = 10):
@@ -3481,12 +3554,13 @@ def within(out, ref, atol: float, rtol: float) -> bool:
 
 
 def flash_windows(S: int):
-    """FLASH_WINDOWS and FLASH_RANDOM_WINDOWS 64-row windows at random
-    starts (seed 5): (first row, rows) pairs."""
+    """The fixed windows at S and FLASH_RANDOM_WINDOWS 64-row windows at
+    random starts (seed 5): (first row, rows) pairs."""
     import numpy as np
     starts = np.random.default_rng(5).integers(0, S - 64,
                                                FLASH_RANDOM_WINDOWS)
-    return FLASH_WINDOWS + tuple((int(r), 64) for r in starts)
+    return ((0, 64), (32, 64), (4001, 64), (S // 2 - 32, 64),
+            (S - 256, 256)) + tuple((int(r), 64) for r in starts)
 
 
 def check_windows(out, q, k, v, what: str, tol=FLASH_BF16_ROUNDING,
@@ -3526,7 +3600,9 @@ def phase_flash(dev, peaks):
     within FLASH_TOL of a plain computation) and at the training step's
     FLASH_TRAIN_SHAPE (against the plain version), each called twice with
     bit-identical results, and timed at the training shape beside SDPA's
-    float32 kernel and its own float32 bound."""
+    float32 kernel and its own float32 bound.  Then the families' shapes
+    (`flash_families`, `flash_gemma`, `flash_zamba`) and Moonlight's
+    (192, 128) instance (`flash_mla`)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3605,6 +3681,7 @@ def phase_flash(dev, peaks):
     zamba = flash_zamba(gen, dev, peaks)
     errs.extend(zamba.pop("pairs"))
     families.update(zamba)
+    families.update(flash_mla(gen, dev, peaks))
     q4, k4, v4 = (t[:, :, :FLASH_PLAIN_S] for t in (q, k, v))
     ms4 = device_ms(lambda: K.flash_attention(q4, k4, v4),
                     match="flash_attention_sm90_kernel<", n=5, warm=1)
@@ -3902,6 +3979,63 @@ def flash_zamba(gen, dev, peaks):
             "zamba_train_f32_bound_ms": bound32,
             "zamba_train_plain_f32_ms": plain32,
             "zamba_train_library_f32_ms": lib32, "pairs": [(out, ref)]}
+
+
+def flash_mla(gen, dev, peaks):
+    """The sm90 kernel's (192, 128) instance at Moonlight's latent
+    attention (MLA_FLASH_SHAPE, bf16, causal; the scale 1/sqrt(192) the
+    q/k head dim sets), on the sm90 path, twice bit-identical; the rows of
+    `flash_windows` against a plain float32 computation on the same bf16
+    inputs within bf16 rounding (the other sm90 instances' gate); device
+    ms beside the bound (both products at the bf16 tensor-core rate over
+    the causal pairs; q, k, v and o once) and beside SDPA (is_causal, its
+    own choice of backend); and at MLA_PLAIN_S the kernel and the plain
+    version (`flash_attention_ref`, float32 math) on the same inputs.
+    Returns the row's `mla_*` keys."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, H, S, D, Dv = MLA_FLASH_SHAPE
+    q, k, v = (torch.randn((B, H, S, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for d in (D, D, Dv))
+    before = flash_launches()
+    out = K.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    got = flash_launches()
+    check(got == {"sm90": before["sm90"] + 1, "simt": before["simt"]} and
+          tuple(out.shape) == (B, H, S, Dv) and out.dtype == torch.bfloat16,
+          f"flash_attention at q/k {D}, v {Dv}: launches {before} -> {got}, "
+          f"output {tuple(out.shape)} {out.dtype}; expected one sm90 launch "
+          f"and a bf16 [B, H, S, {Dv}] output")
+    check(bits_equal(out, K.flash_attention(q, k, v)),
+          f"the sm90 kernel at {MLA_FLASH_SHAPE}: two calls differ")
+    err, use, windows = check_windows(out, q, k, v, "Moonlight's MLA shape")
+    del out
+    ms = device_ms(lambda: K.flash_attention(q, k, v),
+                   match="flash_attention_sm90_kernel<", n=5, warm=2)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), n=5, warm=2)
+    nops = 2 * B * H * (D + Dv) * S * (S + 1) // 2
+    nbytes = 2 * B * H * S * (2 * D + 2 * Dv)
+    bound, by = bound_of(nbytes, nops, peaks, "bfloat16")
+    q4, k4, v4 = (t[:, :, :MLA_PLAIN_S] for t in (q, k, v))
+    ms4 = device_ms(lambda: K.flash_attention(q4, k4, v4),
+                    match="flash_attention_sm90_kernel<", n=5, warm=1)
+    plain4 = device_ms(lambda: flash_attention_ref(q4, k4, v4), n=3, warm=1)
+    log(f"kernel flash_attention (sm90) at Moonlight's MLA (B={B}, H={H}, "
+        f"S={S}, q/k {D}, v {Dv}, bf16, causal): {ms:.4f} ms on the card "
+        f"({nops / ms / 1e9:.2f} TFLOP/s, {bound / ms:.4f} of the bound), "
+        f"bound {bound:.4f} ms by {by} ({nops} flops at the bf16 "
+        f"tensor-core rate, {nbytes} B; mla_bound_ms); SDPA (is_causal) "
+        f"{lib:.4f} ms (mla_library_ms); {len(windows)} row windows within "
+        f"{err:.3e} of a plain float32 computation, at most {use:.3f} of "
+        f"the bf16 rounding gate; two calls bit-identical.  At "
+        f"S={MLA_PLAIN_S}, all {B} rows, the same inputs: kernel "
+        f"{ms4:.4f} ms (mla_ms_at_plain_S), plain version {plain4:.4f} ms "
+        f"(mla_plain_ms)")
+    return {"mla_ms": ms, "mla_bound_ms": bound, "mla_library_ms": lib,
+            "mla_plain_ms": plain4, "mla_ms_at_plain_S": ms4}
 
 
 def first_layer(params):
@@ -5095,6 +5229,75 @@ def phase_gemma3_prefill(dev):
     return cfg, params, launches["sm90"]
 
 
+def phase_moonlight_prefill(dev):
+    """Moonlight-16B-A3B at full width and depth (27 layers: one dense,
+    26 MoE with 64 experts top-6 and the shared experts; latent attention),
+    16 B bf16 params drawn on the card, through `make_prefill_step` at
+    B=MLA_PREFILL_B, S=MLA_PREFILL_S, bf16: a warm-up at S=PREFILL_WARM_S,
+    then 2 prefills with the counters set to 0 just before and read just
+    after: each 27 launches of the sm90 flash kernel (its (192, 128)
+    instance) and 26 of bp_topk_route (its sigmoid mode), none of the
+    CUDA-core flash kernel or of the standalone bp_topk; finite
+    [B, 1, 163,840] logits.  Returns (sm90 launches, bp_topk_route
+    launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels.bp_topk import kernel as TK
+    from repro_torch.models import get_model
+    from repro_torch.runtime.step import make_prefill_step
+    t0 = time.perf_counter()
+    cfg, params = family_model(MLA_ARCH, dev)
+    B, S = MLA_PREFILL_B, MLA_PREFILL_S
+    moe_layers = cfg.n_layers - cfg.first_dense_layers
+    step = make_prefill_step(RunConfig(
+        cfg, ShapeConfig("prefill_8k", S, B, "prefill")))
+    H = get_model(cfg).init_state(device=dev).router_H
+    check(tuple(H.shape) == (moe_layers, cfg.n_experts),
+          f"Moonlight's router queues {tuple(H.shape)}, expected "
+          f"{(moe_layers, cfg.n_experts)}")
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    step(params, {"tokens": toks[:, :PREFILL_WARM_S]}, H)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash()
+    TK.bp_topk.launches = 0
+    TK.bp_topk_route.launches = 0
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = step(params, {"tokens": toks}, H)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    launches = {**flash_launches(),
+                "bp_topk_route": TK.bp_topk_route.launches,
+                "bp_topk": TK.bp_topk.launches}
+    check(launches == {"sm90": 2 * cfg.n_layers, "simt": 0,
+                       "bp_topk_route": 2 * moe_layers, "bp_topk": 0},
+          f"Moonlight prefill: launches {launches} in 2 prefills, expected "
+          f"{cfg.n_layers} of the sm90 flash kernel and {moe_layers} of "
+          f"bp_topk_route per prefill, none of the CUDA-core flash kernel "
+          f"or of the standalone bp_topk")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab) and
+          logits.dtype == torch.bfloat16 and
+          bool(torch.isfinite(logits).all()),
+          f"Moonlight prefill logits {tuple(logits.shape)} {logits.dtype} "
+          f"not finite or misshapen")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(walls)
+    log(f"Moonlight prefill: B={B}, S={S}, bf16, {cfg.n_layers} layers "
+        f"({moe_layers} MoE), 2 prefills "
+        f"{', '.join(f'{w:.4f}' for w in walls)} ms: {med:.4f} ms per "
+        f"prefill, {B * S / med * 1e3:.2f} prefill tokens/s; per prefill "
+        f"{launches['sm90'] // 2} sm90 flash launches (q/k 192, v 128) and "
+        f"{launches['bp_topk_route'] // 2} bp_topk_route launches (sigmoid "
+        f"mode), counted from 0 over both: {launches}; peak device memory "
+        f"{peak:.2f} GiB ({time.perf_counter() - t0:.1f} s with the draw)")
+    return launches["sm90"], launches["bp_topk_route"]
+
+
 def phase_family_serve(dev, cfg, params):
     """The Engine (`Engine(slots=4, max_len=128)`, float32 activations, as
     the reference's) at a family's full depth on the bf16 weights of its
@@ -6127,11 +6330,12 @@ def main() -> int:
     zamba_simt += timed(phase_zamba_decode, dev)
     timed(phase_xlstm, dev)
     timed(phase_xlstm_train, dev)
+    mla_sm90, mla_gate = timed(phase_moonlight_prefill, dev)
     log("family phases: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in phase_s.items()) +
         f"; {time.perf_counter() - t_fam:.1f} s in all")
     launches["flash_attention"] += gemma_sm90 + qwen_sm90 + vlm_sm90 + \
-        ed_sm90 + zamba_sm90
+        ed_sm90 + zamba_sm90 + mla_sm90
     simt_launches += vlm_simt + ed_simt + zamba_simt
     rows["flash_attention"]["simt_f32_launches"] = simt_launches
     rows["flash_attention"]["path"] = (
@@ -6148,12 +6352,15 @@ def main() -> int:
         "per prefill at S=32,768 (phase_zamba_prefill), CUDA-core 9 per "
         "float32 training step (phase_zamba_train) and 2 per float32 "
         "forward at 12 layers (phase_zamba_decode); xlstm-350m launches "
-        "none (its blocks are plain torch, phase_xlstm)")
-    launches["bp_topk_route"] += train_launches["bp_topk_route"]
+        "none (its blocks are plain torch, phase_xlstm); moonlight-16b-a3b "
+        "27 per prefill at B=8, S=8,192 through the (192, 128) instance "
+        "(phase_moonlight_prefill)")
+    launches["bp_topk_route"] += train_launches["bp_topk_route"] + mla_gate
     rows["bp_topk_route"]["path"] = (
         "Engine decode steps (phase_serve); 24 more per prefill "
         "(phase_prefill); training (phase_train): 48 per float32 step under "
-        "full remat, 24 per bfloat16 step")
+        "full remat, 24 per bfloat16 step; moonlight-16b-a3b 26 per prefill "
+        "in the sigmoid mode (phase_moonlight_prefill)")
     # The trace simulator's path (phase 28, run after the model phases so
     # its cached graphs hold no memory while they run): its counts set to
     # 0 and read inside.
@@ -6188,7 +6395,10 @@ def main() -> int:
     # plain version's time there), and the sm90 kernel's time, bound and
     # SDPA's at gemma3's global and windowed layers (`gemma_`) and at
     # zamba's head dim 80, the sm90 kernel at its prefill and the
-    # CUDA-core kernel at its float32 training step (`zamba_`); the noise
+    # CUDA-core kernel at its float32 training step (`zamba_`), and its
+    # (192, 128) instance at Moonlight's prefill, with SDPA's time and the
+    # plain version's beside the kernel's at `plain_S` (`mla_`); the gate's
+    # sigmoid mode at Moonlight's prefill gate (`sigmoid_`); the noise
     # kernel's time, plain time and bound at the trace simulator's
     # regulator draw (`regulator_`); the bp_slot, bp_topk, flash and noise
     # rows name the paths that launched them.
@@ -6202,8 +6412,11 @@ def main() -> int:
              "zamba_prefill_ms", "zamba_prefill_bound_ms",
              "zamba_prefill_library_ms", "zamba_train_f32_ms",
              "zamba_train_f32_bound_ms", "zamba_train_plain_f32_ms",
-             "zamba_train_library_f32_ms", "regulator_ms",
-             "regulator_plain_ms", "regulator_bound_ms", "path")
+             "zamba_train_library_f32_ms", "mla_ms", "mla_bound_ms",
+             "mla_library_ms", "mla_plain_ms", "mla_ms_at_plain_S",
+             "sigmoid_ms", "sigmoid_plain_ms", "sigmoid_bound_ms",
+             "regulator_ms", "regulator_plain_ms", "regulator_bound_ms",
+             "path")
     table = {"kernels": [{k: r[k] for k in keys + shape if k in r}
                          for r in rows.values()]}
     for r in table["kernels"]:

@@ -1,5 +1,9 @@
 """moonshot-v1-16b-a3b [moe] — 64 experts top-6 (kimi/moonlight).
-[hf:moonshotai/Moonlight-16B-A3B; hf]"""
+[hf:moonshotai/Moonlight-16B-A3B; hf]
+
+The JAX package's guess at the model, kept as it has it;
+`moonlight_16b_a3b` is the published model (latent attention, shared
+experts, a leading dense layer)."""
 from .base import ModelConfig
 
 CONFIG = ModelConfig(

@@ -14,6 +14,12 @@
 //   even, as torch's .to() does);
 //   counts = picks per expert (float32); H_new = max((H + counts) - cap, 0);
 //   steps_new = steps + 1.
+// The sigmoid scoring mode (score = 1; DeepSeek-V3's gate, which the JAX
+// package does not have) replaces the softmax by probs = 1 / (1 + exp(-s))
+// per logit, and the weights by their probs / max(sum in pick order, 1e-9)
+// times `scale` (the routed scaling factor); the rest is the same.  The
+// bias H / max(cap, 1) takes the place of noaux_tc's selection-only
+// correction bias.
 //
 // Bound: bytes.  Per row it reads E logits and writes k int64 indices and k
 // weights; the arithmetic is ~(8 + log E) E operations.  At a decode step
@@ -53,8 +59,8 @@
 // steps + 1, and resets the workspace and the ticket for the next launch.
 // H_new is a separate output: other blocks still read H.
 //
-// Bit-exactness with the plain version (ref.py::bp_topk_route_ref): the
-// softmax denominator is ref.warp_sum's order (per-lane partials in stride
+// Bit-exactness with the plain version (ref.py::bp_topk_route_ref), in both
+// modes: the softmax denominator is ref.warp_sum's order (per-lane partials in stride
 // order, then halving adds over the lanes), the weights' sum runs in pick
 // order j = 0..k-1, every add, subtract and divide is its _rn intrinsic,
 // and the build uses -fmad=false and no fast math (accurate expf, IEEE
@@ -96,6 +102,7 @@ struct Gate {
   const float* H;
   const int32_t* steps;
   float cap;
+  float scale;  // sigmoid mode: the routed weights' factor
   int backpressure;
   int64_t* idx;
   float* counts;
@@ -107,6 +114,18 @@ struct Gate {
 
 __device__ __forceinline__ float bias_of(const Gate& g, int e) {
   return g.backpressure ? __fdiv_rn(g.H[e], fmaxf(g.cap, 1.0f)) : 0.0f;
+}
+
+// The sigmoid mode's score: 1 / (1 + exp(-x)), each step rounded once.
+__device__ __forceinline__ float sigmoid_rn(float x) {
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+// A pick's weight from its prob and the picks' sum (at least 1e-9).
+template <bool SIG>
+__device__ __forceinline__ float weight(const Gate& g, float p, float wsum) {
+  const float w = __fdiv_rn(p, wsum);
+  return SIG ? __fmul_rn(w, g.scale) : w;
 }
 
 // (v, i) comes before (ov, oi): the larger value, the lower index if equal.
@@ -180,7 +199,7 @@ __device__ void finish(const Gate& g, int* s_cnt) {
 }
 
 // E <= 32 R, k <= 32: the row in registers, R entries per lane.
-template <typename Tin, int R>
+template <typename Tin, int R, bool SIG>
 __global__ void __launch_bounds__(THREADS)
     bp_topk_route_regs_kernel(const Tin* __restrict__ logits,
                               Tin* __restrict__ w_out, Gate g) {
@@ -213,25 +232,32 @@ __global__ void __launch_bounds__(THREADS)
       xn[r] = (next < g.T && e < g.E) ? widen(logits[next * g.E + e])
                                       : -INFINITY;
     }
-    // softmax: exact max; the sum in ref.warp_sum's order
-    float m = x[0];
-#pragma unroll
-    for (int r = 1; r < R; ++r) m = fmaxf(m, x[r]);
-    m = warp_max(m);
     float p[R];
-    float acc = 0.0f;
+    if constexpr (SIG) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      p[r] = (lane + 32 * r < g.E) ? expf(__fsub_rn(x[r], m)) : 0.0f;
-      acc = __fadd_rn(acc, p[r]);
+      for (int r = 0; r < R; ++r)
+        p[r] = (lane + 32 * r < g.E) ? sigmoid_rn(x[r]) : 0.0f;
+    } else {
+      // softmax: exact max; the sum in ref.warp_sum's order
+      float m = x[0];
+#pragma unroll
+      for (int r = 1; r < R; ++r) m = fmaxf(m, x[r]);
+      m = warp_max(m);
+      float acc = 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        p[r] = (lane + 32 * r < g.E) ? expf(__fsub_rn(x[r], m)) : 0.0f;
+        acc = __fadd_rn(acc, p[r]);
+      }
+      acc = warp_sum(acc);
+#pragma unroll
+      for (int r = 0; r < R; ++r) p[r] = __fdiv_rn(p[r], acc);
     }
-    acc = warp_sum(acc);
     float v[R];
     int i[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int e = lane + 32 * r;
-      p[r] = __fdiv_rn(p[r], acc);
       v[r] = e < g.E ? __fsub_rn(p[r], bias[r]) : -INFINITY;
       i[r] = e;
     }
@@ -273,7 +299,7 @@ __global__ void __launch_bounds__(THREADS)
     wsum = fmaxf(wsum, 1e-9f);
     if (lane < g.k) {
       g.idx[row * g.k + lane] = bi;
-      store_w(&w_out[row * g.k + lane], __fdiv_rn(pj, wsum));
+      store_w(&w_out[row * g.k + lane], weight<SIG>(g, pj, wsum));
       atomicAdd(&s_cnt[bi], 1);
     }
 #pragma unroll
@@ -283,7 +309,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // Any E and k: the row's probs and sel in shared memory, k argmax passes.
-template <typename Tin>
+template <typename Tin, bool SIG>
 __global__ void __launch_bounds__(THREADS)
     bp_topk_route_smem_kernel(const Tin* __restrict__ logits,
                               Tin* __restrict__ w_out, Gate g) {
@@ -301,20 +327,28 @@ __global__ void __launch_bounds__(THREADS)
   for (int64_t row = (int64_t)blockIdx.x * warps + warp; row < g.T;
        row += (int64_t)gridDim.x * warps) {
     const Tin* s = logits + row * g.E;
-    float m = -INFINITY;
-    for (int e = lane; e < g.E; e += 32) m = fmaxf(m, widen(s[e]));
-    m = warp_max(m);
-    float acc = 0.0f;
-    for (int e = lane; e < g.E; e += 32) {
-      const float x = expf(__fsub_rn(widen(s[e]), m));
-      s_p[e] = x;
-      acc = __fadd_rn(acc, x);
-    }
-    acc = warp_sum(acc);
-    for (int e = lane; e < g.E; e += 32) {
-      const float p = __fdiv_rn(s_p[e], acc);
-      s_p[e] = p;
-      s_sel[e] = __fsub_rn(p, bias_of(g, e));
+    if constexpr (SIG) {
+      for (int e = lane; e < g.E; e += 32) {
+        const float p = sigmoid_rn(widen(s[e]));
+        s_p[e] = p;
+        s_sel[e] = __fsub_rn(p, bias_of(g, e));
+      }
+    } else {
+      float m = -INFINITY;
+      for (int e = lane; e < g.E; e += 32) m = fmaxf(m, widen(s[e]));
+      m = warp_max(m);
+      float acc = 0.0f;
+      for (int e = lane; e < g.E; e += 32) {
+        const float x = expf(__fsub_rn(widen(s[e]), m));
+        s_p[e] = x;
+        acc = __fadd_rn(acc, x);
+      }
+      acc = warp_sum(acc);
+      for (int e = lane; e < g.E; e += 32) {
+        const float p = __fdiv_rn(s_p[e], acc);
+        s_p[e] = p;
+        s_sel[e] = __fsub_rn(p, bias_of(g, e));
+      }
     }
     __syncwarp();
     float wsum = 0.0f;
@@ -348,7 +382,7 @@ __global__ void __launch_bounds__(THREADS)
     }
     wsum = fmaxf(wsum, 1e-9f);
     for (int j = lane; j < g.k; j += 32)
-      store_w(&w_out[row * g.k + j], __fdiv_rn(s_pick[j], wsum));
+      store_w(&w_out[row * g.k + j], weight<SIG>(g, s_pick[j], wsum));
     __syncwarp();
   }
   finish(g, s_cnt);
@@ -388,7 +422,7 @@ __device__ __forceinline__ void group_best(float& bv, int& bi, float& bp) {
   }
 }
 
-template <typename Tin, int E_>
+template <typename Tin, int E_, bool SIG>
 __global__ void __launch_bounds__(ROWS_THREADS)
     bp_topk_route_rows_kernel(const Tin* __restrict__ logits,
                               Tin* __restrict__ w_out, Gate g) {
@@ -414,36 +448,40 @@ __global__ void __launch_bounds__(ROWS_THREADS)
 #pragma unroll
     for (int j = 0; j < N; ++j)
       v[j] = live ? widen(logits[row * E_ + q + G * j]) : 0.0f;
-    float m = v[0];
+    if constexpr (SIG) {
 #pragma unroll
-    for (int j = 1; j < N; ++j) m = fmaxf(m, v[j]);
+      for (int j = 0; j < N; ++j) v[j] = sigmoid_rn(v[j]);
+    } else {
+      float m = v[0];
 #pragma unroll
-    for (int o = 1; o < G; o <<= 1)
-      m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, o));
+      for (int j = 1; j < N; ++j) m = fmaxf(m, v[j]);
 #pragma unroll
-    for (int j = 0; j < N; ++j) v[j] = expf(__fsub_rn(v[j], m));
-    // lane partial l = q + G t: entries l + 32 r, i.e. v[t + P r]
-    float s[P];
+      for (int o = 1; o < G; o <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, o));
 #pragma unroll
-    for (int t = 0; t < P; ++t) {
-      float a = 0.0f;
+      for (int j = 0; j < N; ++j) v[j] = expf(__fsub_rn(v[j], m));
+      // lane partial l = q + G t: entries l + 32 r, i.e. v[t + P r]
+      float s[P];
 #pragma unroll
-      for (int r = 0; r < E_ / 32; ++r) a = __fadd_rn(a, v[t + P * r]);
-      s[t] = a;
+      for (int t = 0; t < P; ++t) {
+        float a = 0.0f;
+#pragma unroll
+        for (int r = 0; r < E_ / 32; ++r) a = __fadd_rn(a, v[t + P * r]);
+        s[t] = a;
+      }
+      halve<P / 2>(s);               // levels 16, 8, 4: l and l + h local
+      halve<P / 4>(s);
+      halve<P / 8>(s);
+      float acc = s[0];
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)  // levels 2, 1: across the group
+        acc = __fadd_rn(acc, __shfl_xor_sync(FULL_MASK, acc, o));
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] = __fdiv_rn(v[j], acc);
     }
-    halve<P / 2>(s);                 // levels 16, 8, 4: l and l + h local
-    halve<P / 4>(s);
-    halve<P / 8>(s);
-    float acc = s[0];
-#pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1)  // levels 2, 1: across the group
-      acc = __fadd_rn(acc, __shfl_xor_sync(FULL_MASK, acc, o));
     float sel[N];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      v[j] = __fdiv_rn(v[j], acc);
-      sel[j] = __fsub_rn(v[j], s_bias[q + G * j]);
-    }
+    for (int j = 0; j < N; ++j) sel[j] = __fsub_rn(v[j], s_bias[q + G * j]);
     float pv = INFINITY, wsum = 0.0f;
     int pi = -1;
     for (int j = 0; j < g.k; ++j) {
@@ -473,12 +511,12 @@ __global__ void __launch_bounds__(ROWS_THREADS)
     if (live)
       for (int j = q; j < g.k; j += G)
         store_w(&w_out[row * g.k + j],
-                __fdiv_rn(s_pick[j * blockDim.x + threadIdx.x], wsum));
+                weight<SIG>(g, s_pick[j * blockDim.x + threadIdx.x], wsum));
   }
   finish(g, s_cnt);
 }
 
-template <typename Tin>
+template <typename Tin, bool SIG>
 static int launch(const void* logits, void* w, Gate g, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -493,10 +531,10 @@ static int launch(const void* logits, void* w, Gate g, cudaStream_t stream) {
       blocks = (int64_t)sms * ROWS_BLOCKS_PER_SM;
     const size_t smem = (size_t)g.E * 8 + (size_t)g.k * ROWS_THREADS * 4;
     if (g.E == 32)
-      bp_topk_route_rows_kernel<Tin, 32>
+      bp_topk_route_rows_kernel<Tin, 32, SIG>
           <<<(unsigned)blocks, ROWS_THREADS, smem, stream>>>(in, out, g);
     else
-      bp_topk_route_rows_kernel<Tin, 64>
+      bp_topk_route_rows_kernel<Tin, 64, SIG>
           <<<(unsigned)blocks, ROWS_THREADS, smem, stream>>>(in, out, g);
     return (int)cudaGetLastError();
   }
@@ -508,13 +546,17 @@ static int launch(const void* logits, void* w, Gate g, cudaStream_t stream) {
     const size_t smem = (size_t)g.E * sizeof(int);
     const dim3 grid((unsigned)blocks), block(warps * 32);
     if (g.E <= 32)
-      bp_topk_route_regs_kernel<Tin, 1><<<grid, block, smem, stream>>>(in, out, g);
+      bp_topk_route_regs_kernel<Tin, 1, SIG>
+          <<<grid, block, smem, stream>>>(in, out, g);
     else if (g.E <= 64)
-      bp_topk_route_regs_kernel<Tin, 2><<<grid, block, smem, stream>>>(in, out, g);
+      bp_topk_route_regs_kernel<Tin, 2, SIG>
+          <<<grid, block, smem, stream>>>(in, out, g);
     else if (g.E <= 128)
-      bp_topk_route_regs_kernel<Tin, 4><<<grid, block, smem, stream>>>(in, out, g);
+      bp_topk_route_regs_kernel<Tin, 4, SIG>
+          <<<grid, block, smem, stream>>>(in, out, g);
     else
-      bp_topk_route_regs_kernel<Tin, 8><<<grid, block, smem, stream>>>(in, out, g);
+      bp_topk_route_regs_kernel<Tin, 8, SIG>
+          <<<grid, block, smem, stream>>>(in, out, g);
     return (int)cudaGetLastError();
   }
   // shared-memory path: fewer warps per block when a row's buffers are large
@@ -526,30 +568,34 @@ static int launch(const void* logits, void* w, Gate g, cudaStream_t stream) {
   const size_t smem = bytes(warps);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        bp_topk_route_smem_kernel<Tin>,
+        bp_topk_route_smem_kernel<Tin, SIG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   int64_t blocks = (g.T + warps - 1) / warps;
   if (blocks > (int64_t)sms * 8) blocks = (int64_t)sms * 8;
-  bp_topk_route_smem_kernel<Tin><<<(unsigned)blocks, warps * 32, smem,
-                                   stream>>>(in, out, g);
+  bp_topk_route_smem_kernel<Tin, SIG><<<(unsigned)blocks, warps * 32, smem,
+                                        stream>>>(in, out, g);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (logits and w).  ws: int32 [1 + E],
+// dtype: 0 = float32, 1 = bfloat16 (logits and w).  score: 0 = softmax,
+// 1 = sigmoid, whose weights are multiplied by `scale`.  ws: int32 [1 + E],
 // zero before the first launch; every launch leaves it zero.
 int bp_topk_route(const void* logits, int dtype, const void* H,
-                  const void* steps, float cap, int backpressure, void* idx,
-                  void* w, void* counts, void* H_new, void* steps_out,
-                  void* ws, int T, int E, int k, void* stream) {
-  if (T < 1 || E < 1 || k < 1 || k > E) return (int)cudaErrorInvalidValue;
+                  const void* steps, float cap, int backpressure, int score,
+                  float scale, void* idx, void* w, void* counts, void* H_new,
+                  void* steps_out, void* ws, int T, int E, int k,
+                  void* stream) {
+  if (T < 1 || E < 1 || k < 1 || k > E || score < 0 || score > 1)
+    return (int)cudaErrorInvalidValue;
   Gate g;
   g.H = (const float*)H;
   g.steps = (const int32_t*)steps;
   g.cap = cap;
+  g.scale = scale;
   g.backpressure = backpressure;
   g.idx = (int64_t*)idx;
   g.counts = (float*)counts;
@@ -560,8 +606,12 @@ int bp_topk_route(const void* logits, int dtype, const void* H,
   g.E = E;
   g.k = k;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(logits, w, g, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(logits, w, g, s);
+  if (dtype == 0)
+    return score ? launch<float, true>(logits, w, g, s)
+                 : launch<float, false>(logits, w, g, s);
+  if (dtype == 1)
+    return score ? launch<__nv_bfloat16, true>(logits, w, g, s)
+                 : launch<__nv_bfloat16, false>(logits, w, g, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,6 +5,7 @@ bp_topk`; its CUDA source is `csrc/bp_topk.cu`.  `bp_topk_route` runs the
 whole gate of one MoE layer (`repro.models.moe._route` with
 ``use_kernel=True``: the bias, that kernel's function, the expert counts
 and the H update) in one launch; its source is `csrc/bp_topk_route.cu`.
+It also has a sigmoid scoring mode of the port's own (DeepSeek-V3's gate).
 Each wrapper checks dtype, shape, device and contiguity, then:
 
   * for CPU tensors, runs the plain PyTorch version in `ref.py`
@@ -89,8 +90,9 @@ def _route_lib() -> ctypes.CDLL:
     lib = _build.load(ROUTE_SOURCE)
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bp_topk_route.argtypes = [vp, ci, vp, vp, ctypes.c_float, ci, vp,
-                                      vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.bp_topk_route.argtypes = [vp, ci, vp, vp, ctypes.c_float, ci, ci,
+                                      ctypes.c_float, vp, vp, vp, vp, vp, vp,
+                                      ci, ci, ci, vp]
         lib.bp_topk_route.restype = ci
         lib._typed = True
     return lib
@@ -110,16 +112,24 @@ def _workspace(dev: torch.device, stream: int, E: int) -> torch.Tensor:
     return ws
 
 
+#: Scoring modes of `bp_topk_route`, by the C entry's code.
+ROUTE_SCORES = {"softmax": 0, "sigmoid": 1}
+
+
 def bp_topk_route(logits: torch.Tensor, H: torch.Tensor, steps: torch.Tensor,
-                  cap: float, k: int, backpressure: bool):
+                  cap: float, k: int, backpressure: bool,
+                  score: str = "softmax", scale: float = 1.0):
     """The backpressure gate of one MoE layer.
 
     logits: [T, E] float32 or bfloat16 router logits; H: [E] float32
     virtual queues; steps: [] int32; cap: the per-step capacity C_e (a
     Python float, taken as float32); ``backpressure``: bias the selection
-    by H / max(cap, 1) (else no bias).  Returns (idx [T, k] int64,
-    w [T, k] in the logits' dtype, counts [E] float32, H_new [E] float32,
-    steps + 1), equal bit for bit to `ref.bp_topk_route_ref`."""
+    by H / max(cap, 1) (else no bias); ``score``: "softmax" (the JAX
+    package's gate) or "sigmoid" (DeepSeek-V3's: each logit's sigmoid, the
+    weights the picks' sigmoids over their sum times ``scale``, taken as
+    float32).  Returns (idx [T, k] int64, w [T, k] in the logits' dtype,
+    counts [E] float32, H_new [E] float32, steps + 1), equal bit for bit to
+    `ref.bp_topk_route_ref`."""
     if logits.dim() != 2:
         raise ValueError(f"logits: expected [T, E], got {tuple(logits.shape)}")
     T, E = logits.shape
@@ -132,8 +142,12 @@ def bp_topk_route(logits: torch.Tensor, H: torch.Tensor, steps: torch.Tensor,
     _check("steps", steps, torch.int32, (), dev)
     if T < 1 or not 1 <= k <= E:
         raise ValueError(f"T={T} must be >= 1 and k={k} lie in [1, E={E}]")
+    if score not in ROUTE_SCORES:
+        raise ValueError(f"score {score!r}: expected one of "
+                         f"{sorted(ROUTE_SCORES)}")
     if dev.type in ("cpu", "meta"):     # meta: the dry-run's shapes only
-        return bp_topk_route_ref(logits, H, steps, cap, k, backpressure)
+        return bp_topk_route_ref(logits, H, steps, cap, k, backpressure,
+                                 score, scale)
     if dev.type != "cuda":
         raise ValueError(f"bp_topk_route: unsupported device {dev}")
     if (E > 256 or k > 32) and 4 * E + 4 * (2 * E + k) > SMEM_LIMIT:
@@ -150,7 +164,8 @@ def bp_topk_route(logits: torch.Tensor, H: torch.Tensor, steps: torch.Tensor,
         err = _route_lib().bp_topk_route(
             logits.data_ptr(), ROUTE_DTYPES[logits.dtype], H.data_ptr(),
             steps.data_ptr(), ctypes.c_float(cap), int(bool(backpressure)),
-            idx.data_ptr(), w.data_ptr(), counts.data_ptr(), H_new.data_ptr(),
+            ROUTE_SCORES[score], ctypes.c_float(scale), idx.data_ptr(),
+            w.data_ptr(), counts.data_ptr(), H_new.data_ptr(),
             steps_new.data_ptr(), ws.data_ptr(), T, E, k, stream)
     _raise_on(err, "bp_topk_route")
     bp_topk_route.launches += 1

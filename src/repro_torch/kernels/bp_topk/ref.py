@@ -26,7 +26,10 @@ H / max(cap, 1), `bp_topk_ref` on the logits widened to float32, the
 expert counts and the H update of `repro.models.moe._route`.  Its top k
 is `bp_topk_ref`'s, which the fused kernel's sort gives as well (the k
 largest sel in order, the lowest index on ties), so the kernel is held to
-it bit for bit.
+it bit for bit.  Its sigmoid mode (`bp_topk_sigmoid_ref`, the port's own)
+scores each logit by 1 / (1 + exp(-s)), each step rounded once as the
+kernel rounds it, and scales the weights by the routed factor after the
+division.
 """
 from __future__ import annotations
 
@@ -54,15 +57,37 @@ def warp_sum(x: torch.Tensor) -> torch.Tensor:
 def bp_topk_ref(scores: torch.Tensor, bias: torch.Tensor, k: int):
     """scores [T, E] float32 gate logits, bias [E] float32 (H / C).
     Returns (idx [T, k] int32, w [T, k] float32)."""
-    T, E = scores.shape
     m = scores.max(dim=1, keepdim=True).values
     e = torch.exp(scores - m)
     probs = e / warp_sum(e)[:, None]
+    idx, picked, wsum = _picks(probs, bias, k)
+    return idx, picked / torch.clamp(wsum, min=1e-9)[:, None]
+
+
+def bp_topk_sigmoid_ref(scores: torch.Tensor, bias: torch.Tensor, k: int,
+                        scale: float):
+    """The sigmoid mode: scores [T, E] float32, bias [E] float32, the
+    routed factor ``scale`` (taken as float32).  Returns (idx [T, k] int32,
+    w [T, k] float32): the k largest sigmoid(s) - bias, lowest index on
+    ties, weighted by their sigmoids over their sum (at least 1e-9) times
+    ``scale``."""
+    probs = torch.reciprocal(1.0 + torch.exp(-scores))
+    idx, picked, wsum = _picks(probs, bias, k)
+    w = picked / torch.clamp(wsum, min=1e-9)[:, None]
+    return idx, w * torch.tensor(scale, dtype=torch.float32,
+                                 device=w.device)
+
+
+def _picks(probs: torch.Tensor, bias: torch.Tensor, k: int):
+    """(idx [T, k] int32, their probs [T, k], the probs' sum [T] in pick
+    order): k argmax passes over probs - bias, lowest index on ties."""
+    T, E = probs.shape
+    dev = probs.device
     work = probs - bias[None, :]
-    rows = torch.arange(T, device=scores.device)
-    idx = torch.empty((T, k), dtype=torch.int32, device=scores.device)
-    picked = torch.empty((T, k), dtype=torch.float32, device=scores.device)
-    wsum = torch.zeros((T,), dtype=torch.float32, device=scores.device)
+    rows = torch.arange(T, device=dev)
+    idx = torch.empty((T, k), dtype=torch.int32, device=dev)
+    picked = torch.empty((T, k), dtype=torch.float32, device=dev)
+    wsum = torch.zeros((T,), dtype=torch.float32, device=dev)
     for j in range(k):
         best = torch.argmax(work, dim=1)     # first occurrence on ties
         p = probs[rows, best]
@@ -70,23 +95,29 @@ def bp_topk_ref(scores: torch.Tensor, bias: torch.Tensor, k: int):
         picked[:, j] = p
         wsum = wsum + p
         work[rows, best] = NEG
-    return idx, picked / torch.clamp(wsum, min=1e-9)[:, None]
+    return idx, picked, wsum
 
 
 def bp_topk_route_ref(logits: torch.Tensor, H: torch.Tensor,
                       steps: torch.Tensor, cap: float, k: int,
-                      backpressure: bool):
+                      backpressure: bool, score: str = "softmax",
+                      scale: float = 1.0):
     """logits [T, E] float32 or bfloat16, H [E] float32, steps [] int32,
-    cap the per-step capacity (taken as float32).  Returns (idx [T, k]
-    int64, w [T, k] in the logits' dtype, counts [E] float32, H_new [E]
-    float32, steps + 1)."""
+    cap the per-step capacity (taken as float32), ``score`` "softmax" or
+    "sigmoid" (weights times ``scale``).  Returns (idx [T, k] int64,
+    w [T, k] in the logits' dtype, counts [E] float32, H_new [E] float32,
+    steps + 1)."""
     T, E = logits.shape
     cap_t = torch.full((), cap, dtype=torch.float32, device=logits.device)
     if backpressure:
         bias = H / torch.clamp(cap_t, min=1.0)
     else:
         bias = torch.zeros((E,), dtype=torch.float32, device=logits.device)
-    idx, w = bp_topk_ref(logits.to(torch.float32), bias, k)
+    if score == "sigmoid":
+        idx, w = bp_topk_sigmoid_ref(logits.to(torch.float32), bias, k,
+                                     scale)
+    else:
+        idx, w = bp_topk_ref(logits.to(torch.float32), bias, k)
     idx = idx.long()
     # exact integer counts (bincount's), through an op the meta device has
     counts = torch.zeros((E,), dtype=torch.int64, device=idx.device)

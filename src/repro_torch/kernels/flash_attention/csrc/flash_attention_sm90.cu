@@ -12,10 +12,20 @@
 // with __float2bfloat16_rn.  The softmax runs in base 2: s = (q . k) *
 // scale * log2(e) in float32, p = exp2(s - m).
 //
+// One more instance has no TPU counterpart: q/k head dim 192 with v head
+// dim 128 (v [B, KH, T, 128], out [B, H, S, 128]), DeepSeek-V3's latent
+// attention (MLA) as Moonlight-16B-A3B runs it, with q and k's no-RoPE 128
+// and RoPE 64 columns side by side; the wrapper passes scale = 1/sqrt(192).
+// The kernel is templated on the two widths, <DQK, DV>; the D = 64, 80 and
+// 128 instances have DQK = DV = D (below, D is either where they agree).
+//
 // Bound: operations.  A causal call does 4 H D S (S + 1) / 2 flops per batch
 // row and moves q, k, v and out once.  At granite's prefill shape (S =
 // 32768, H = 16, KH = 8, D = 64) that is 2.2e12 flops against 0.20 GB: 2.22
 // ms at the card's dense bf16 rate of 989 TFLOP/s, 0.06 ms at 3.35 TB/s.
+// The (192, 128) instance does 2 H (192 + 128) flops per (query, key) pair:
+// at Moonlight's prefill (B = 8, S = 8192, H = KH = 16) 2.75e12 flops
+// against 1.34 GB, 2.78 ms at 989 TFLOP/s.
 //
 // Accuracy.  q . k of bf16 operands is exact in the f32 accumulator up to
 // the order of the additions.  P . V does not round P to bf16, which would
@@ -67,6 +77,11 @@
 //     (d_valid = 80).  The tensor cores do 128/80 = 1.6x the work of the
 //     head dim; a 80-wide tile (m64n80 for P V, five 16-column k-steps for
 //     Q K^T in a panel of its own) is left for later.
+//   * (DQK, DV) = (192, 128) keeps the D = 128 instance's tiles and
+//     registers (BK = 64; 32 scores, 64 of O, 32 of P a thread): Q and K
+//     tiles are three 64-column panels and S = Q K^T takes 12 k-steps, V
+//     tiles two panels and O is m64n128.  Shared memory: Q 48 KB and two
+//     stages of K (24 KB) and V (16 KB), 128 KB.
 // Each warpgroup waits for its own products, so its softmax overlaps only
 // the other warpgroup's products.  Left for later: overlapping a tile's
 // softmax with the next tile's products in the same warpgroup, with the
@@ -96,18 +111,19 @@ constexpr int CONSUMERS = 256;  // threads of the two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int PANEL = 64;       // bf16 columns of one 128-byte swizzle row
 
-template <int D>
+template <int DQK, int DV>
 struct Cfg {
-  static constexpr int BK = D == 64 ? 128 : 64;   // keys per K/V tile
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
-  static constexpr int SMEM = Q_BYTES + NST * 2 * KV_BYTES;
+  static constexpr int BK = DQK == 64 ? 128 : 64;  // keys per K/V tile
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int K_BYTES = BK * DQK * 2;     // one K tile
+  static constexpr int V_BYTES = BK * DV * 2;      // one V tile
+  static constexpr int SMEM = Q_BYTES + NST * (K_BYTES + V_BYTES);
 };
 
 struct Params {
   int S, T, G, causal, window;  // window < 0: no window
-  int d_valid;                  // columns of out to store (<= D)
-  float scale_log2;             // 1/sqrt(D) * log2(e)
+  int d_valid;                  // columns of v and out (<= DV)
+  float scale_log2;             // scale * log2(e), scale = 1/sqrt(DQK)
   __nv_bfloat16* o;
   int64_t ob, oh, os;           // out's batch, head, sequence strides
 };
@@ -338,20 +354,20 @@ __device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
                                 const Params p) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full, k_full[NST], v_full[NST],
       empty[NST];
   // 128-byte swizzled tiles start on 1024-byte boundaries
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* q_s = smem;  // D / 64 panels of [BQ rows][128 B]
+  uint8_t* q_s = smem;  // DQK / 64 panels of [BQ rows][128 B]
 
   const int tid = threadIdx.x;
   const int qblk = gridDim.x - 1 - blockIdx.x;
@@ -375,21 +391,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (tid == CONSUMERS) {
       mbar_expect_tx(&q_full, C::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < D / PANEL; ++c)
+      for (int c = 0; c < DQK / PANEL; ++c)
         tma_load(q_s + c * BQ * 128, &tq, &q_full, c * PANEL, q0, h, b);
       for (int kb = cta.x, it = 0; kb < cta.y; ++kb, ++it) {
         const int st = it % NST;
         if (it >= NST) mbar_wait(&empty[st], ((it / NST) - 1) & 1);
-        uint8_t* k_s = smem + C::Q_BYTES + st * 2 * C::KV_BYTES;
-        uint8_t* v_s = k_s + C::KV_BYTES;
-        mbar_expect_tx(&k_full[st], C::KV_BYTES);
+        uint8_t* k_s = smem + C::Q_BYTES + st * (C::K_BYTES + C::V_BYTES);
+        uint8_t* v_s = k_s + C::K_BYTES;
+        mbar_expect_tx(&k_full[st], C::K_BYTES);
 #pragma unroll
-        for (int c = 0; c < D / PANEL; ++c)
+        for (int c = 0; c < DQK / PANEL; ++c)
           tma_load(k_s + c * BK * 128, &tk, &k_full[st], c * PANEL, kb * BK,
                    kvh, b);
-        mbar_expect_tx(&v_full[st], C::KV_BYTES);
+        mbar_expect_tx(&v_full[st], C::V_BYTES);
 #pragma unroll
-        for (int c = 0; c < D / PANEL; ++c)
+        for (int c = 0; c < DV / PANEL; ++c)
           tma_load(v_s + c * BK * 128, &tv, &v_full[st], c * PANEL, kb * BK,
                    kvh, b);
       }
@@ -405,9 +421,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int2 mine = kv_tiles(r0, 64, BK, p);
   const uint32_t q_addr = smem_u32(q_s) + wg * 64 * 128;
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
 
   mbar_wait(&q_full, 0);
@@ -415,8 +431,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int kb = cta.x, it = 0; kb < cta.y; ++kb, ++it) {
     const int st = it % NST;
     const uint32_t phase = (it / NST) & 1;
-    uint8_t* k_s = smem + C::Q_BYTES + st * 2 * C::KV_BYTES;
-    uint8_t* v_s = k_s + C::KV_BYTES;
+    uint8_t* k_s = smem + C::Q_BYTES + st * (C::K_BYTES + C::V_BYTES);
+    uint8_t* v_s = k_s + C::K_BYTES;
     mbar_wait(&k_full[st], phase);
     if (kb < mine.x || kb >= mine.y) {  // no key here for these rows
       mbar_wait(&v_full[st], phase);
@@ -425,7 +441,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     __syncwarp();
 
-    // S = Q K^T over D in steps of 16
+    // S = Q K^T over DQK in steps of 16
     float s[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
@@ -433,7 +449,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     hold<BK / 2>(s);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DQK / 16; ++kk)
       wgmma_ss<BK>(s,
                    sw128_desc(q_addr + (kk / 4) * BQ * 128 + (kk % 4) * 32,
                               16, 1024),
@@ -481,25 +497,25 @@ __global__ void __launch_bounds__(THREADS, 1)
       p_lo[i / 2] = bf162_bits(__floats2bfloat162_rn(e0 - hf.x, e1 - hf.y));
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // O += p_hi V + p_lo V over the tile's keys in steps of 16
     mbar_wait(&v_full[st], phase);
     __syncwarp();
     const uint32_t v_addr = smem_u32(v_s);
-    hold<D / 2>(o);
+    hold<DV / 2>(o);
     hold<BK / 4>(p_hi);
     hold<BK / 4>(p_lo);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, BK * 128, 1024);
-      wgmma_rs<D>(o, p_hi + 4 * kk, dv);
-      wgmma_rs<D>(o, p_lo + 4 * kk, dv);
+      wgmma_rs<DV>(o, p_hi + 4 * kk, dv);
+      wgmma_rs<DV>(o, p_lo + 4 * kk, dv);
     }
     wg_commit();
     wg_wait_all();
-    hold<D / 2>(o);
+    hold<DV / 2>(o);
     hold<BK / 4>(p_hi);
     hold<BK / 4>(p_lo);
     mbar_arrive(&empty[st]);
@@ -515,7 +531,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float den = fmaxf(l[r], 1e-30f);
       __nv_bfloat16* orow = p.o + b * p.ob + h * p.oh + row * p.os;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         if (8 * j < p.d_valid)  // d_valid is a multiple of 8
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
               __floats2bfloat162_rn(o[4 * j + 2 * r] / den,
@@ -571,41 +587,44 @@ static int encode(EncodeTiled fn, CUtensorMap* map, const void* base, int D,
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
-// The D-column kernel over tensors of p.d_valid <= D columns.
-template <int D>
+// The (DQK, DV)-column kernel over q and k of dqk <= DQK columns and v of
+// p.d_valid <= DV columns.
+template <int DQK, int DV>
 static int launch(const void* q, const void* k, const void* v, int B, int H,
-                  int KH, const long long* strides, Params p,
+                  int KH, const long long* strides, int dqk, Params p,
                   cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  const int dv = p.d_valid;
-  int err = encode(fn, &tq, q, dv, p.S, H, B, strides, BQ);
-  if (!err) err = encode(fn, &tk, k, dv, p.T, KH, B, strides + 3, C::BK);
-  if (!err) err = encode(fn, &tv, v, dv, p.T, KH, B, strides + 6, C::BK);
+  int err = encode(fn, &tq, q, dqk, p.S, H, B, strides, BQ);
+  if (!err) err = encode(fn, &tk, k, dqk, p.T, KH, B, strides + 3, C::BK);
+  if (!err)
+    err = encode(fn, &tv, v, p.d_valid, p.T, KH, B, strides + 6, C::BK);
   if (err) return err;
   const int smem = C::SMEM + 1024;  // + room to align to 1024 bytes
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_sm90_kernel<D>,
+      flash_attention_sm90_kernel<DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((p.S + BQ - 1) / BQ, H, B);
-  flash_attention_sm90_kernel<D><<<grid, THREADS, smem, stream>>>(tq, tk, tv,
-                                                                  p);
+  flash_attention_sm90_kernel<DQK, DV>
+      <<<grid, THREADS, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// bfloat16 q [B, H, S, D], k/v [B, KH, T, D], out [B, H, S, D], D = 64, 80
-// (through the D = 128 kernel) or 128.  strides: 12 element strides, (batch, head, sequence) of q, k, v and
-// out; each of q, k, v must be 16-byte aligned with strides of a multiple of
-// 8 elements (the tensor maps').  window < 0: no window.
+// bfloat16 q [B, H, S, D], k [B, KH, T, D], v [B, KH, T, Dv], out [B, H, S,
+// Dv]: D = Dv = 64, 80 (through the D = 128 kernel) or 128, or D = 192 with
+// Dv = 128.  strides: 12 element strides, (batch, head, sequence) of q, k, v
+// and out; each of q, k, v must be 16-byte aligned with strides of a
+// multiple of 8 elements (the tensor maps').  window < 0: no window.
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                              void* o, int B, int H, int KH, int S, int T,
-                             int D, const long long* strides, int causal,
-                             int window, float scale, void* stream) {
+                             int D, int Dv, const long long* strides,
+                             int causal, int window, float scale,
+                             void* stream) {
   if (B == 0 || H == 0 || S == 0) return (int)cudaSuccess;
   if (KH <= 0 || H % KH != 0 || T <= 0) return (int)cudaErrorInvalidValue;
   Params p;
@@ -614,16 +633,19 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   p.G = H / KH;
   p.causal = causal;
   p.window = window;
-  p.d_valid = D;
+  p.d_valid = Dv;
   p.scale_log2 = scale * LOG2E;
   p.o = (__nv_bfloat16*)o;
   p.ob = strides[9];
   p.oh = strides[10];
   p.os = strides[11];
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64) return launch<64>(q, k, v, B, H, KH, strides, p, s);
-  if (D == 80 || D == 128)
-    return launch<128>(q, k, v, B, H, KH, strides, p, s);
+  if (D == 64 && Dv == 64)
+    return launch<64, 64>(q, k, v, B, H, KH, strides, D, p, s);
+  if ((D == 80 || D == 128) && Dv == D)
+    return launch<128, 128>(q, k, v, B, H, KH, strides, D, p, s);
+  if (D == 192 && Dv == 128)
+    return launch<192, 128>(q, k, v, B, H, KH, strides, D, p, s);
   return (int)cudaErrorInvalidValue;
 }
 

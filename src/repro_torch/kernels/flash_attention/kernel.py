@@ -9,7 +9,8 @@ dtypes, device and strides, then:
     use, see `repro_torch.kernels._build`) or raises.  There is no
     fallback from one kernel to the other or to the plain version.
 
-The kernel is chosen by dtype and head dim only:
+The kernel is chosen by dtype and head dims only (q and k have one head
+dim, D; v has its own, Dv, which is D unless said):
 
   * bfloat16 with D in {64, 80, 128}: `csrc/flash_attention_sm90.cu`,
     both products on the bf16 tensor cores (wgmma, K/V staged by TMA),
@@ -17,6 +18,10 @@ The kernel is chosen by dtype and head dim only:
     tensor maps 80 columns wide (TMA fills the rest of the tile with
     zeros, and the store is bounded to 80 columns), so q, k and v are
     passed as they are, with no padded copy;
+  * bfloat16 with (D, Dv) = (192, 128), the latent attention (MLA) of
+    DeepSeek-V3's block: the same kernel's (192, 128) instance, scores
+    scaled by 1/sqrt(192); float32 at these dims is refused (its training
+    is not ported);
   * float32 (D in {16, 32, 64, 80, 128}) and bfloat16 with D in {16, 32}:
     `csrc/flash_attention.cu`, the CUDA-core kernel: one CTA of 256
     threads per (batch row, kv head, query block) covering up to 8 of the
@@ -28,7 +33,8 @@ With T = 0 no row has a key, and with an empty q there is no row: the
 wrapper then returns zeros without a launch, whatever the dtype.  Both kernels take any S and T >= 1 and read q, k and v
 through their batch, head and sequence strides with the head dim
 contiguous, so a [B, S, H, D] tensor passes as its ``transpose(1, 2)`` view
-without a copy; the output takes q's strides (`torch.empty_like`).  Both
+without a copy; the output takes q's strides (`torch.empty_like`; with
+Dv != D, `_out`'s [B, S, H, Dv] layout).  Both
 read rows in 16-byte pieces: the sm90 kernel through TMA tensor maps
 (`tma_ready`), the CUDA-core kernel by ``cp.async`` and vector loads
 (`async_copy_ready`); each needs a 16-byte aligned base and strides of a
@@ -57,7 +63,8 @@ SOURCE = CSRC / "flash_attention.cu"            # the CUDA-core kernel
 SOURCE_SM90 = CSRC / "flash_attention_sm90.cu"  # the tensor-core kernel
 #: Head dims each kernel instantiates, by dtype.
 HEAD_DIMS = {torch.float32: (16, 32, 64, 80, 128), torch.bfloat16: (16, 32)}
-HEAD_DIMS_SM90 = (64, 80, 128)                  # bfloat16 only
+#: (q/k, v) head dims of the sm90 kernel's instances, bfloat16 only.
+HEAD_DIMS_SM90 = ((64, 64), (80, 80), (128, 128), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -81,29 +88,36 @@ def _lib_sm90() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_sm90_fwd.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
             ctypes.POINTER(ctypes.c_longlong), ci, ci, ctypes.c_float, vp]
         lib.flash_attention_sm90_fwd.restype = ci
         lib._typed = True
     return lib
 
 
-def uses_sm90(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether a CUDA call of this dtype and head dim runs the sm90
-    kernel (else the CUDA-core kernel)."""
-    return dtype == torch.bfloat16 and head_dim in HEAD_DIMS_SM90
+def uses_sm90(dtype: torch.dtype, head_dim: int,
+              v_dim: int | None = None) -> bool:
+    """Whether a CUDA call of this dtype and q/k head dim (and v head dim,
+    ``head_dim`` unless given) runs the sm90 kernel (else the CUDA-core
+    kernel)."""
+    dims = (head_dim, head_dim if v_dim is None else v_dim)
+    return dtype == torch.bfloat16 and dims in HEAD_DIMS_SM90
 
 
-def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call of this dtype and head dim launches: "sm90"
-    or "cuda-core"; ValueError for a head dim that neither instantiates."""
-    if uses_sm90(dtype, head_dim):
+def kernel_for(dtype: torch.dtype, head_dim: int,
+               v_dim: int | None = None) -> str:
+    """The kernel a CUDA call of this dtype and head dims launches: "sm90"
+    or "cuda-core"; ValueError for head dims that neither instantiates
+    (the CUDA-core kernel takes v's head dim equal to q's only)."""
+    if uses_sm90(dtype, head_dim, v_dim):
         return "sm90"
-    if head_dim in HEAD_DIMS[dtype]:
+    if v_dim in (None, head_dim) and head_dim in HEAD_DIMS[dtype]:
         return "cuda-core"
-    raise ValueError(f"flash_attention: head dim {head_dim} in {dtype} is "
-                     f"not one of the kernels' {HEAD_DIMS[dtype]} or, in "
-                     f"bfloat16, {HEAD_DIMS_SM90}")
+    dims = (f"head dim {head_dim}" if v_dim in (None, head_dim) else
+            f"head dims q/k {head_dim}, v {v_dim}")
+    raise ValueError(f"flash_attention: {dims} in {dtype} is not one of "
+                     f"the kernels' {HEAD_DIMS[dtype]} or, in bfloat16, "
+                     f"(q/k, v) {HEAD_DIMS_SM90}")
 
 
 def async_copy_ready(t: torch.Tensor) -> bool:
@@ -153,21 +167,34 @@ def _check(q, k, v):
             raise ValueError(f"{name}: the head dim must be contiguous")
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, KH, T, D) or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"k/v: expected [B, KH, T, D] = {(B, KH, T, D)}, "
-                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    if tuple(k.shape) != (B, KH, T, D) or tuple(v.shape[:3]) != (B, KH, T) \
+            or v.shape[3] < 1:
+        raise ValueError(f"k/v: expected [B, KH, T, D] = {(B, KH, T, D)} "
+                         f"and [B, KH, T, Dv], got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
     if KH == 0 or H % KH:
         raise ValueError(f"{H} query heads over {KH} kv heads")
 
 
+def _out(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An uninitialised output [B, H, S, dv] in q's dtype: q's strides when
+    dv is q's head dim, else heads inside the sequence as in a
+    [B, S, H, dv] tensor's ``transpose(1, 2)`` view."""
+    if dv == q.shape[3]:
+        return torch.empty_like(q)
+    B, H, S, _ = q.shape
+    return q.new_empty((B, S, H, dv)).transpose(1, 2)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None) -> torch.Tensor:
-    """q [B, H, S, D], k/v [B, KH, T, D] (float32 or bfloat16, head dim
-    contiguous) -> [B, H, S, D] in q's dtype: causal GQA attention with an
-    optional sliding window, float32 math (see `ref.flash_attention_ref`).
-    On CUDA, bfloat16 with D in {64, 80, 128} runs the sm90 kernel and
-    the other instantiated head dims the CUDA-core kernel (see the
-    module's docstring); any other head dim raises."""
+    """q [B, H, S, D], k [B, KH, T, D], v [B, KH, T, Dv] (float32 or
+    bfloat16, head dim contiguous) -> [B, H, S, Dv] in q's dtype: causal
+    GQA attention with an optional sliding window, scores scaled by
+    1/sqrt(D), float32 math (see `ref.flash_attention_ref`).  On CUDA,
+    bfloat16 with (D, Dv) in `HEAD_DIMS_SM90` runs the sm90 kernel and the
+    other instantiated head dims (Dv = D) the CUDA-core kernel (see the
+    module's docstring); any other head dims raise."""
     _check(q, k, v)
     if window is not None and window < 0:
         raise ValueError(f"window={window} must be None or >= 0")
@@ -177,10 +204,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     B, H, S, D = q.shape
-    KH, T = k.shape[1], k.shape[2]
-    sm90 = kernel_for(q.dtype, D) == "sm90"
+    KH, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    sm90 = kernel_for(q.dtype, D, Dv) == "sm90"
     if T == 0 or q.numel() == 0:     # no key for any row, or no row: 0
-        return torch.zeros_like(q)
+        return _out(q, Dv).zero_()
     if sm90:
         return _flash_sm90(q, k, v, causal=causal, window=window)
     q, k, v = (t if async_copy_ready(t) else
@@ -202,14 +229,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _flash_sm90(q, k, v, *, causal, window):
-    """The sm90 kernel on CUDA bfloat16 tensors with D in
+    """The sm90 kernel on CUDA bfloat16 tensors with (D, Dv) in
     HEAD_DIMS_SM90."""
     B, H, S, D = q.shape
-    KH, T = k.shape[1], k.shape[2]
+    KH, T, Dv = k.shape[1], k.shape[2], v.shape[3]
     q, k, v = (t if tma_ready(t) else
                t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
-    out = torch.empty_like(q)
+    out = _out(q, Dv)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v) for s in _map_strides(t)),
         *out.stride()[:3])
@@ -218,7 +245,7 @@ def _flash_sm90(q, k, v, *, causal, window):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib_sm90().flash_attention_sm90_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            KH, S, T, D, strides, int(causal),
+            KH, S, T, D, Dv, strides, int(causal),
             -1 if window is None else int(window), 1.0 / math.sqrt(D),
             stream)
     _raise_on(err, "flash_attention (sm90)")

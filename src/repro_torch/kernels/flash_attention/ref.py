@@ -30,8 +30,9 @@ def key_mask(S: int, T: int, *, causal: bool, window, device=None):
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window=None) -> torch.Tensor:
-    """q [B,H,S,D], k/v [B,KH,T,D] -> [B,H,S,D] in q's dtype (f32 math);
-    query head h reads kv head h // (H / KH)."""
+    """q [B,H,S,D], k [B,KH,T,D], v [B,KH,T,Dv] -> [B,H,S,Dv] in q's dtype
+    (f32 math, scores scaled by 1/sqrt(D)); query head h reads kv head
+    h // (H / KH)."""
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
     G = H // KH

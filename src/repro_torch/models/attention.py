@@ -1,5 +1,5 @@
 """GQA attention with RoPE: the prefill forward, cross-attention and the
-decode path.
+decode path; and multi-head latent attention (MLA), prefill only.
 
 Port of `repro.models.attention`: `KVCache`, `init_attn`, `_project_qkv`,
 `_mask`, `sdpa` (the einsum reference path, scores in float32 with -1e30
@@ -13,6 +13,11 @@ Unlike the reference's pure functions, `decode_attention` writes the new
 key, value and position into the cache's tensors in place (the port's
 choice: a functional copy would copy every layer's cache each step) and
 returns the same cache.
+
+`mla_attention` is the port's own (the JAX package has no MLA): DeepSeek-V3's
+latent attention for configs with a ``kv_lora_rank`` (`is_mla`), whose q/k
+heads (no-RoPE part + RoPE part) are wider than its v heads; the cores
+(`sdpa`, `sdpa_chunked`, `_kernel_core`) take v with its own head dim.
 """
 from __future__ import annotations
 
@@ -24,8 +29,9 @@ import torch
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import (flash_attention_fn,
                                           flash_attention_op)
+from ..obs import spans
 from ..runtime import flags
-from .common import Init, apply_rope
+from .common import Init, apply_rope, rmsnorm
 
 
 class KVCache(NamedTuple):
@@ -86,7 +92,8 @@ def _mask(q_pos, k_pos, *, causal: bool, window: Optional[int]):
 
 
 def sdpa(q, k, v, mask) -> torch.Tensor:
-    """q [B,S,H,D], k/v [B,T,KH,D], mask [B,S,T] -> [B,S,H,D]."""
+    """q [B,S,H,D], k [B,T,KH,D], v [B,T,KH,Dv], mask [B,S,T] ->
+    [B,S,H,Dv]; scores scaled by 1/sqrt(D)."""
     B, S, H, D = q.shape
     KH = k.shape[2]
     G = H // KH
@@ -96,7 +103,7 @@ def sdpa(q, k, v, mask) -> torch.Tensor:
                          scores.to(torch.float32), -1e30)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(B, S, H, D)
+    return out.reshape(B, S, H, v.shape[-1])
 
 
 def _pad_to(x, n: int, axis: int, value=0):
@@ -119,10 +126,11 @@ def sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool,
     [S, T] score tensor, at most [chunk_q, chunk_k] per head.  Padded
     queries carry position -1e9, padded keys -1 (invalid).
 
-    q [B,S,H,D]; k/v [B,T,KH,D]; q_pos [B,S]; k_pos [B,T] (-1 = invalid).
+    q [B,S,H,D]; k [B,T,KH,D]; v [B,T,KH,Dv]; q_pos [B,S]; k_pos [B,T]
+    (-1 = invalid) -> [B,S,H,Dv]; scores scaled by 1/sqrt(D).
     """
     B, S, H, D = q.shape
-    KH, T = k.shape[2], k.shape[1]
+    KH, T, Dv = k.shape[2], k.shape[1], v.shape[-1]
     G = H // KH
     cq, ck = min(chunk_q, S), min(chunk_k, T)
     qp = _pad_to(q, cq, 1)
@@ -136,7 +144,7 @@ def sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool,
     qh = qp.reshape(B, nq, cq, KH, G, D).transpose(0, 1)
     qpos_c = qpos.reshape(B, nq, cq).transpose(0, 1)
     kh = kp.reshape(B, nk, ck, KH, D).transpose(0, 1)
-    vh = vp.reshape(B, nk, ck, KH, D).transpose(0, 1)
+    vh = vp.reshape(B, nk, ck, KH, Dv).transpose(0, 1)
     kpos_c = kpos.reshape(B, nk, ck).transpose(0, 1)
     scale = 1.0 / math.sqrt(D)
 
@@ -167,15 +175,15 @@ def sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool,
         m0 = torch.full((B, KH, G, cq), -1e30, dtype=torch.float32,
                         device=dev)
         l0 = torch.zeros((B, KH, G, cq), dtype=torch.float32, device=dev)
-        a0 = torch.zeros((B, KH, G, cq, D), dtype=torch.float32, device=dev)
+        a0 = torch.zeros((B, KH, G, cq, Dv), dtype=torch.float32, device=dev)
         (m, l, acc), _ = flags.layer_scan(kv_block, (m0, l0, a0),
                                           (kh, vh, kpos_c))
         out = acc / torch.clamp(l, min=1e-30)[..., None]
-        return None, out.to(q.dtype)               # [B,KH,G,cq,D]
+        return None, out.to(q.dtype)               # [B,KH,G,cq,Dv]
 
     _, outs = flags.layer_scan(q_block, None, (qh, qpos_c))
-    # outs: [nq, B, KH, G, cq, D] -> [B, Sq, H, D]
-    out = outs.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, KH * G, D)
+    # outs: [nq, B, KH, G, cq, Dv] -> [B, Sq, H, Dv]
+    out = outs.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, KH * G, Dv)
     return out[:, :S]
 
 
@@ -228,15 +236,23 @@ def sdpa_banded(q, k, v, q_pos, k_pos, *, window: int) -> torch.Tensor:
 
 
 def _kernel_core(q, k, v, *, causal: bool, window: Optional[int]):
-    """The flash kernel on [B, S, H, D] q and [B, T, KH, D] k/v, given as
-    their [B, H, S, D] ``transpose(1, 2)`` views (the kernel reads
-    strides): through `flash_attention_fn` (`FlashAttentionFn`, the
-    gradient) when any input needs a gradient, else `flash_attention_op`.
+    """The flash kernel on [B, S, H, D] q, [B, T, KH, D] k and
+    [B, T, KH, Dv] v, given as their [B, H, S, D] ``transpose(1, 2)``
+    views (the kernel reads strides), -> [B, S, H, Dv]: through
+    `flash_attention_fn` (`FlashAttentionFn`, the gradient; dense copies
+    of q, k and v, which it saves) when any input needs a gradient, else
+    `flash_attention_op` on the views themselves where the head dim is
+    contiguous (the wrapper copies what its kernel cannot read in place;
+    MLA's v, a column slice of the latent expansion, it reads in place).
     """
-    core = (flash_attention_fn if any(t.requires_grad for t in (q, k, v))
-            else flash_attention_op)
-    return core(*(t.contiguous().transpose(1, 2) for t in (q, k, v)),
-                causal=causal, window=window).transpose(1, 2)
+    if any(t.requires_grad for t in (q, k, v)):
+        return flash_attention_fn(
+            *(t.contiguous().transpose(1, 2) for t in (q, k, v)),
+            causal=causal, window=window).transpose(1, 2)
+    return flash_attention_op(
+        *((t if t.stride(-1) == 1 else t.contiguous()).transpose(1, 2)
+          for t in (q, k, v)),
+        causal=causal, window=window).transpose(1, 2)
 
 
 def attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
@@ -255,19 +271,98 @@ def attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     `context_parallel`); "naive" the masked `sdpa`.  The reference's
     sharding constraints only shard and are left out."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    if x.device.type == "cuda":
-        out = _kernel_core(q, k, v, causal=causal, window=window)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    out = _core(q, k, v, positions, causal=causal, window=window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def _core(q, k, v, positions, *, causal: bool, window: Optional[int]):
+    """`attention`'s core on q [B, S, H, D], k [B, S, KH, D], v [B, S, KH,
+    Dv] -> [B, S, H, Dv]: the flash kernel on CUDA, else the reference's
+    choice by the flags (see `attention`)."""
+    if q.device.type == "cuda":
+        return _kernel_core(q, k, v, causal=causal, window=window)
     pos = positions if positions.dim() == 2 else positions[None, :]
-    pos = pos.expand(x.shape[:2])
+    pos = pos.expand(q.shape[:2])
     if flags.attn_impl() == "chunked" and window is not None and causal:
-        out = sdpa_banded(q, k, v, pos, pos, window=window)
-    elif flags.attn_impl() == "chunked":
+        return sdpa_banded(q, k, v, pos, pos, window=window)
+    if flags.attn_impl() == "chunked":
         cq = 10 ** 9 if flags.ctx_par() else 2048
-        out = sdpa_chunked(q, k, v, pos, pos, causal=causal, window=window,
-                           chunk_q=cq)
-    else:
-        out = sdpa(q, k, v, _mask(pos, pos, causal=causal, window=window))
+        return sdpa_chunked(q, k, v, pos, pos, causal=causal, window=window,
+                            chunk_q=cq)
+    return sdpa(q, k, v, _mask(pos, pos, causal=causal, window=window))
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (MLA)
+# ---------------------------------------------------------------------------
+
+def is_mla(cfg) -> bool:
+    """Whether ``cfg``'s attention is MLA (a config with a latent rank)."""
+    return getattr(cfg, "kv_lora_rank", 0) > 0
+
+
+def init_mla(cfg, ini: Init) -> dict:
+    """MLA's projections, as DeepSeek-V3 names them: ``wq`` (`q_proj`, no
+    q latent), ``wkv_a`` (`kv_a_proj_with_mqa`: the latent c and the shared
+    RoPE key), ``kv_norm`` (c's RMSNorm gain, held as g and applied as
+    1 + g), ``wkv_b`` (`kv_b_proj`: c to every head's no-RoPE key and
+    value) and ``wo`` (`o_proj`)."""
+    d, H, R = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    Dn, Dr, Dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                  cfg.v_head_dim)
+    return {
+        "wq": ini.param((d, H, Dn + Dr), ("embed", "heads", "head_dim")),
+        "wkv_a": ini.param((d, R + Dr), ("embed", None)),
+        "kv_norm": ini.param((R,), (None,), kind="zeros"),
+        "wkv_b": ini.param((R, H, Dn + Dv), (None, "heads", "head_dim")),
+        "wo": ini.param((H, Dv, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def _mla_qkv(cfg, p, x, positions):
+    """x [B, S, d] -> q, k [B, S, H, Dn + Dr] and v [B, S, H, Dv]:
+
+      q = x W_q, its last Dr columns rotated;
+      [c, k_pe] = x W_kv_a, c = RMSNorm(c), k_pe rotated;
+      [k_nope, v] = c W_kv_b per head;
+      k = [k_nope, k_pe] with the one k_pe in every head.
+
+    RoPE is the port's half-split rotation (`common.apply_rope`) over the
+    Dr columns."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    R, Dn, Dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    kv = x @ p["wkv_a"].to(dt)                                # [B, S, R+Dr]
+    c = rmsnorm(kv[..., :R], p["kv_norm"], cfg.norm_eps)
+    kvb = torch.einsum("bsr,rhk->bshk", c, p["wkv_b"].to(dt))
+    q_pe = apply_rope(q[..., Dn:], positions, cfg.rope_theta)
+    k_pe = apply_rope(kv[..., None, R:], positions, cfg.rope_theta)
+    q = torch.cat([q[..., :Dn], q_pe], dim=-1)
+    k = torch.cat([kvb[..., :Dn], k_pe.expand(B, S, cfg.n_heads, Dr)],
+                  dim=-1)
+    return q, k, kvb[..., Dn:]
+
+
+def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """Multi-head latent attention over the whole sequence (the prefill):
+    x [B, S, d] -> [B, S, d].  q and k (`_mla_qkv`) have
+    Dn + Dr columns a head and v Dv; scores scale by 1/sqrt(Dn + Dr); the
+    core is `attention`'s (`_core`: on CUDA the flash kernel's (Dn + Dr,
+    Dv) instance, masking by index, v read in place as the 128-column
+    slice of the latent expansion), then ``wo``.  Spans: ``mla.latent``
+    (the projections, the norm, RoPE and the K/V assembly) and
+    ``mla.core``; counter ``mla.kv_expanded_bytes``, the bytes of K and V
+    the latent expands to.  Decode through a latent cache is not ported
+    (`transformer` refuses an MLA decode)."""
+    dev = x.device
+    with spans.span("mla.latent", device=dev):
+        q, k, v = _mla_qkv(cfg, p, x, positions)
+    spans.count("mla.kv_expanded_bytes",
+                (k.numel() + v.numel()) * k.element_size())
+    with spans.span("mla.core", device=dev):
+        out = _core(q, k, v, positions, causal=causal, window=None)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 

@@ -134,10 +134,16 @@ def layernorm_nonparam(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (centered * torch.rsqrt(var + eps)).to(dt)
 
 
+def norm_eps(cfg) -> float:
+    """The RMSNorm epsilon of ``cfg``: its ``norm_eps`` where the config
+    carries one (`configs.moonlight_16b_a3b.MLAConfig`), else 1e-6."""
+    return getattr(cfg, "norm_eps", 1e-6)
+
+
 def norm(cfg, x: torch.Tensor, gamma: torch.Tensor | None) -> torch.Tensor:
     if cfg.norm == "layernorm_nonparam":
         return layernorm_nonparam(x)
-    return rmsnorm(x, gamma)
+    return rmsnorm(x, gamma, norm_eps(cfg))
 
 
 def init_norm(cfg, ini: Init, d: int) -> Annotated | None:

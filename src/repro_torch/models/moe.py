@@ -22,9 +22,18 @@ The combine is deterministic: each token's k contributions are gathered
 in the token's own pick order and summed over k, with no scatter-add; it
 differs from the reference's scatter-add (which adds in expert-sorted
 order) by rounding only.
+
+Two additions of the port's own, for DeepSeek-V3's block (configs with
+``score_func`` and ``n_shared_experts``, `configs.moonlight_16b_a3b`): a
+sigmoid gate, which selects by sigmoid(logit) - H / C_e and weights the
+picks by their sigmoids over their sum times ``routed_scale`` (both
+branches; no gradient: training such a model is not ported), and shared
+experts, one SwiGLU beside the routed ones that every token passes,
+unweighted (`_shared_expert`, span ``moe.shared``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -33,17 +42,27 @@ import torch
 from ..core.router import RouterState, expert_counts, topk_first
 from ..kernels.bp_topk.kernel import bp_topk_route
 from ..kernels.bp_topk.ops import bp_topk_route_fn
-from .common import Init
+from ..obs import spans
+from .common import Init, init_mlp, swiglu
 
 
 def init_moe(cfg, ini: Init) -> dict:
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {
+    p = {
         "router": ini.param((d, E), ("embed", "experts"), scale=0.02),
         "gate": ini.param((E, d, ff), ("experts", "embed", "expert_ff")),
         "up": ini.param((E, d, ff), ("experts", "embed", "expert_ff")),
         "down": ini.param((E, ff, d), ("experts", "expert_ff", "embed")),
     }
+    shared = getattr(cfg, "n_shared_experts", 0)
+    if shared:
+        p["shared"] = init_mlp(cfg, ini, ff=shared * ff)
+    return p
+
+
+def _shared_expert(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The shared experts' output for every token of x [B, S, d]."""
+    return swiglu(x, p["gate"], p["up"], p["down"])
 
 
 def _route(cfg, p, x_flat, router_state: RouterState, *,
@@ -55,10 +74,19 @@ def _route(cfg, p, x_flat, router_state: RouterState, *,
     E, k = cfg.n_experts, cfg.top_k
     logits = torch.einsum("gtd,de->gte", x_flat,
                           p["router"].to(x_flat.dtype))
+    sigmoid = getattr(cfg, "score_func", "softmax") == "sigmoid"
+    if sigmoid and logits.requires_grad:
+        raise NotImplementedError(
+            f"{cfg.name}: the sigmoid gate has no gradient (training a "
+            f"model with it is not ported)")
     if use_kernel:
         # one launch: bias, gate, counts, H update (logits read in place);
         # through the Function that carries dL/dw when one is needed
-        gate = bp_topk_route_fn if logits.requires_grad else bp_topk_route
+        if sigmoid:
+            gate = functools.partial(bp_topk_route, score="sigmoid",
+                                     scale=cfg.routed_scale)
+        else:
+            gate = bp_topk_route_fn if logits.requires_grad else bp_topk_route
         idx, w, counts, H_new, steps = gate(
             logits.reshape(G * Tg, E).contiguous(),
             router_state.H.contiguous(), router_state.steps,
@@ -68,7 +96,8 @@ def _route(cfg, p, x_flat, router_state: RouterState, *,
         probs = (torch.softmax(logits.to(torch.float32), dim=-1)
                  if cfg.router == "aux" else None)
     else:
-        probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        probs = (torch.sigmoid(logits.to(torch.float32)) if sigmoid else
+                 torch.softmax(logits.to(torch.float32), dim=-1))
         cap_step = torch.full((), G * Tg * k / E, dtype=torch.float32,
                               device=x_flat.device)        # C_e per step
         if cfg.router == "backpressure":
@@ -79,6 +108,8 @@ def _route(cfg, p, x_flat, router_state: RouterState, *,
         idx = topk_first(probs - bias[None, None, :], k)      # [G, Tg, k]
         w = torch.gather(probs, -1, idx)
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        if sigmoid:
+            w = w * cfg.routed_scale
         counts = expert_counts(idx, E)
         H_new = torch.clamp(router_state.H + counts - cap_step, min=0.0)
         new_state = RouterState(H=H_new, steps=router_state.steps + 1)
@@ -100,7 +131,9 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor, router_state: RouterState, *,
 
     Groups default to one per sequence (G=B, Tg=S).  dropless=True sizes
     the expert buffers to the worst case (decode: capacity = all tokens of
-    the group).  ``use_kernel`` selects `_route`'s branch."""
+    the group).  ``use_kernel`` selects `_route`'s branch.  A layer with
+    shared experts (``p["shared"]``) adds their output to the routed
+    one."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -155,5 +188,8 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor, router_state: RouterState, *,
     Yflat = torch.cat([Y.reshape(G, E * cap, d),
                        torch.zeros((G, 1, d), dtype=dt, device=dev)], dim=1)
     vals = Yflat[rows, slot] * w.reshape(G, tk)[..., None]     # [G, tk, d]
-    out = vals.reshape(G, Tg, k, d).sum(dim=2)
-    return out.reshape(B, S, d), new_state, aux
+    out = vals.reshape(G, Tg, k, d).sum(dim=2).reshape(B, S, d)
+    if "shared" in p:
+        with spans.span("moe.shared", device=dev):
+            out = out + _shared_expert(p["shared"], x)
+    return out, new_state, aux

@@ -23,6 +23,14 @@ launch of a CUDA kernel on the card, at decode, prefill and training
 the stack and returns each layer's new H, as the reference does;
 `lm_decode_step`, like the reference, drops them: at decode the caller's
 H is the bias.
+
+DeepSeek-V3's block (`configs.moonlight_16b_a3b.MLAConfig`, the port's
+own): `block_fwd` runs `attention.mla_attention` where the config has a
+latent rank, and a config with ``first_dense_layers`` stacks them apart,
+{"dense": [n_dense, ...], "layers": [n_layers - n_dense, ...]}, dense
+SwiGLUs of width ``dense_d_ff`` run first; the router queues H are the MoE
+layers' alone ([n_layers - n_dense, E]).  Decode of an MLA config (a
+latent cache) is not ported and is refused.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..core.router import RouterState
 from ..device import resolve_device
 from .attention import (KVCache, attention, decode_attention, init_attn,
-                        init_cache)
+                        init_cache, init_mla, is_mla, mla_attention)
 from .common import (Init, cross_entropy, embed, init_embedding, init_mlp,
                      init_norm, norm, swiglu, unembed)
 from .moe import init_moe, moe_ffn
@@ -46,6 +54,11 @@ from .moe import init_moe, moe_ffn
 class ModelState(NamedTuple):
     """Non-parameter model state: per-MoE-layer router queues H."""
     router_H: Optional[torch.Tensor]    # [L_moe, E] or None
+
+
+def n_dense(cfg) -> int:
+    """Leading dense layers of an MoE stack (``first_dense_layers``)."""
+    return getattr(cfg, "first_dense_layers", 0)
 
 
 #: The families another module stacks.
@@ -62,6 +75,15 @@ def _check_family(cfg) -> None:
             f"{cfg.name}: models.transformer does not stack the "
             f"{cfg.family!r} family; "
             f"{_STACKED_BY.get(cfg.family, 'no module')} does")
+
+
+def _check_decode(cfg) -> None:
+    """Decode needs a KV cache of the config's attention: an MLA config
+    (a latent cache) is refused."""
+    if is_mla(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: decode through a latent (MLA) cache is not ported; "
+            f"the port runs this model's prefill only")
 
 
 def _dots_policy(ctx, func, *args, **kwargs):
@@ -93,26 +115,33 @@ def _remat(fn, mode: str):
 # One block
 # ---------------------------------------------------------------------------
 
-def init_block(cfg, ini: Init, *, moe: bool) -> dict:
+def init_block(cfg, ini: Init, *, moe: bool, d_ff: int | None = None) -> dict:
+    """One block's params; ``d_ff`` the dense MLP's width (``cfg.d_ff``
+    unless given)."""
     p = {
         "ln1": init_norm(cfg, ini, cfg.d_model),
-        "attn": init_attn(cfg, ini),
+        "attn": init_mla(cfg, ini) if is_mla(cfg) else init_attn(cfg, ini),
         "ln2": init_norm(cfg, ini, cfg.d_model),
     }
     if moe:
         p["moe"] = init_moe(cfg, ini)
     else:
-        p["mlp"] = init_mlp(cfg, ini)
+        p["mlp"] = init_mlp(cfg, ini, ff=d_ff)
     return {k: v for k, v in p.items() if v is not None}
 
 
 def block_fwd(cfg, p: dict, x, positions, *, window, router_H=None,
               causal: bool = True):
-    """x [B, S, d] -> (x', router_H', aux).  The MoE FFN runs its capacity
+    """x [B, S, d] -> (x', router_H', aux).  Attention is MLA for a config
+    with a latent rank (`attention.is_mla`).  The MoE FFN runs its capacity
     path with one group per sequence (G = B) and routes through
     `bp_topk_route`."""
     h = norm(cfg, x, p.get("ln1"))
-    h = attention(cfg, p["attn"], h, positions, window=window, causal=causal)
+    if is_mla(cfg):
+        h = mla_attention(cfg, p["attn"], h, positions, causal=causal)
+    else:
+        h = attention(cfg, p["attn"], h, positions, window=window,
+                      causal=causal)
     x = x + h
     h = norm(cfg, x, p.get("ln2"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -170,6 +199,12 @@ def init_stack(cfg, ini: Init) -> dict:
         if tail:
             p["tail"] = init_block(cfg, ini.stacked(tail), moe=moe)
         return p
+    nd = n_dense(cfg)
+    if nd:
+        return {"dense": init_block(cfg, ini.stacked(nd), moe=False,
+                                    d_ff=cfg.dense_d_ff),
+                "layers": init_block(cfg, ini.stacked(cfg.n_layers - nd),
+                                     moe=moe)}
     return {"layers": init_block(cfg, ini.stacked(cfg.n_layers), moe=moe)}
 
 
@@ -182,7 +217,9 @@ def stack_fwd(cfg, p: dict, x, positions, *, remat: str = "full",
     once.  Under the local/global pattern each group runs its k local
     blocks (``window=cfg.window``), then its global block (no window),
     then the tail's local blocks; ``router_H`` passes through unchanged,
-    as in the reference, whose pattern serves dense stacks only."""
+    as in the reference, whose pattern serves dense stacks only.  Leading
+    dense layers (`n_dense`) run before the stack's MoE layers, which
+    alone read and update ``router_H``."""
     _check_family(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     local = _remat(functools.partial(block_fwd, cfg, window=cfg.window),
@@ -201,8 +238,11 @@ def stack_fwd(cfg, p: dict, x, positions, *, remat: str = "full",
     moe = cfg.family == "moe"
     if moe and router_H is None:
         raise ValueError(f"{cfg.name}: an MoE stack needs router_H [L, E]")
+    nd = n_dense(cfg)
+    for lp in unstack(p["dense"], nd) if nd else ():
+        x, _, _ = local(lp, x, positions)
     H_out = []
-    for i, lp in enumerate(unstack(p["layers"], cfg.n_layers)):
+    for i, lp in enumerate(unstack(p["layers"], cfg.n_layers - nd)):
         x, H, aux = local(lp, x, positions,
                           router_H=router_H[i] if moe else None)
         aux_total = aux_total + aux
@@ -215,7 +255,7 @@ def init_model_state(cfg, device=None, abstract: bool = False) -> ModelState:
     the caller asks for the CPU, the meta device when ``abstract``."""
     if cfg.family == "moe":
         return ModelState(router_H=torch.zeros(
-            (cfg.n_layers, cfg.n_experts), dtype=torch.float32,
+            (cfg.n_layers - n_dense(cfg), cfg.n_experts), dtype=torch.float32,
             device=resolve_device(device, abstract)))
     return ModelState(router_H=None)
 
@@ -315,6 +355,7 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype, device=None,
     "tail": [tail]}, whose local and tail caches hold min(window, max_len)
     slots (a ring) and whose global caches hold max_len."""
     _check_family(cfg)
+    _check_decode(cfg)
     dev = resolve_device(device, abstract)
 
     def stacked(prefix, window=None):
@@ -348,6 +389,7 @@ def lm_decode_step(cfg, params, caches, tokens, *,
     """tokens: [B] int -> (logits [B, V], caches).  The caches are
     updated in place (see `attention.decode_attention`)."""
     _check_family(cfg)
+    _check_decode(cfg)
     x = embed(cfg, params["embed"], tokens[:, None], activ_dtype)
     stack = params["stack"]
     if cfg.local_global:

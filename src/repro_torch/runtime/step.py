@@ -21,6 +21,7 @@ from ..configs.base import RunConfig
 from ..device import resolve_device
 from ..models import get_model, split_tree
 from ..models.common import tree_leaves, tree_map
+from ..obs import spans
 from ..optim import (AdamW, AdamWState, EFState, compress_int8_ef,
                      compress_topk_ef, init_ef, init_ef_abstract,
                      warmup_cosine)
@@ -159,12 +160,14 @@ def make_prefill_step(rcfg: RunConfig):
     """Forward pass emitting last-position logits (inference prefill):
     ``prefill_step(params, batch, router_H) -> logits [B, 1, V]`` in the
     run's activation dtype.  As in the reference, the step drops the new
-    router queues; `ModelAPI.logits` returns them."""
+    router queues; `ModelAPI.logits` returns them.  Each call is one span
+    ``prefill.step`` (`obs.spans`, off unless recording)."""
     api = get_model(rcfg.model)
     adt = _dtype(rcfg.activ_dtype)
 
     def prefill_step(params, batch, router_H):
-        with torch.inference_mode():
+        dev = next(iter(batch.values())).device
+        with spans.span("prefill.step", device=dev), torch.inference_mode():
             logits, _, _ = api.logits(params, batch, activ_dtype=adt,
                                       remat="none", router_H=router_H,
                                       last_only=True)
